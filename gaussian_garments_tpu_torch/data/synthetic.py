@@ -1,9 +1,11 @@
-"""Synthetic garments, cameras and splat scenes in numpy.
+"""Synthetic garments, cameras, multi-view datasets and splat scenes.
 
-Port of the parts of ``gaussian_garments_tpu/data/synthetic.py`` the
-inference path needs (``make_cloth_template``, ``make_camera_ring``), so a
-garment can be built on a machine without jax, plus ``make_splat_scene``: a
-seeded random splat scene for kernel checks.
+Port of ``gaussian_garments_tpu/data/synthetic.py`` (``make_cloth_template``,
+``make_camera_ring``, ``face_checker_colors``, ``render_ground_truth``,
+``make_scene``, ``write_reference_layout``), so a dataset can be built on a
+machine without jax. The ground truth is rendered with the port's own tiled
+compositor. Plus ``make_splat_scene``, a seeded random splat scene for kernel
+checks, and ``build_garment_splats``, the 150K-splat scene of ``bench.py``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def make_cloth_template(nx: int = 12, ny: int = 12, size: float = 1.0,
 
 def make_camera_ring(n: int = 8, radius: float = 2.0, height: float = 0.8,
                      target: Optional[np.ndarray] = None, fx: float = 200.0,
-                     width: int = 128, height_px: int = 128, device="cpu") -> List[Camera]:
+                     width: int = 128, height_px: int = 128, device=None) -> List[Camera]:
     """n pinhole cameras on a ring looking at ``target`` (x right, y down,
     z forward)."""
     target = np.zeros(3) if target is None else np.asarray(target, np.float64)
@@ -50,8 +52,190 @@ def make_camera_ring(n: int = 8, radius: float = 2.0, height: float = 0.8,
         r_w2c = np.stack([right, down, fwd], axis=0)
         cams.append(make_camera(R=r_w2c.T, T=-r_w2c @ pos, fx=fx, fy=fx, cx=width / 2,
                                 cy=height_px / 2, width=width, height=height_px,
-                                image_name=f"synthetic_{k:02d}", device=device))
+                                uid=k, image_name=f"synthetic_{k:02d}", device=device))
     return cams
+
+
+def face_checker_colors(faces: np.ndarray, verts: np.ndarray) -> np.ndarray:
+    """Deterministic per-face RGB in [0,1] (checker + position gradient)."""
+    centers = verts[faces].mean(axis=1)
+    c = np.zeros((len(faces), 3), np.float32)
+    c[:, 0] = 0.5 + 0.5 * np.sin(12 * centers[:, 0])
+    c[:, 1] = 0.5 + 0.5 * np.cos(12 * centers[:, 1])
+    c[:, 2] = np.linspace(0.2, 0.9, len(faces))
+    return np.clip(c, 0.0, 1.0)
+
+
+def render_ground_truth(cameras: List[Camera], verts: np.ndarray, faces: np.ndarray,
+                        colors: np.ndarray, splat_log_scale: float = -4.6,
+                        opacity: float = 0.95) -> List[Camera]:
+    """One opaque splat per face of the true mesh, rendered into every camera
+    with the port's tiled compositor on the cameras' device. Returns the
+    cameras with ``original_image`` and ``gt_alpha_mask`` (alpha > 0.5) set."""
+    import torch
+
+    from gaussian_garments_tpu_torch.ops.projection import project_gaussians
+    from gaussian_garments_tpu_torch.ops.tiles import rasterize_tiles
+    from gaussian_garments_tpu_torch.utils.sh import rgb2sh
+
+    dev = cameras[0].world_view_transform.device
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    n = len(faces)
+    rots = np.zeros((n, 4), np.float32)
+    rots[:, 0] = 1
+    centers = t(verts[faces].mean(axis=1))
+    scales = t(np.full((n, 3), np.exp(splat_log_scale)))
+    shs = t(rgb2sh(np.asarray(colors, np.float32))[:, None, :])
+    opac = t(np.full((n,), opacity))
+    out = []
+    with torch.no_grad():
+        for cam in cameras:
+            proj = project_gaussians(
+                centers, cam.world_view_transform, cam.full_proj_transform, cam.camera_center,
+                image_width=cam.image_width, image_height=cam.image_height,
+                tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, scales=scales, rotations=t(rots),
+                shs=shs, opacities=opac, sh_degree=0)
+            img, _, alpha, _ = rasterize_tiles(proj, image_height=cam.image_height,
+                                               image_width=cam.image_width,
+                                               bg=torch.zeros(3, device=dev))
+            out.append(cam.replace(original_image=img,
+                                   gt_alpha_mask=(alpha > 0.5).to(torch.float32)))
+    return out
+
+
+def make_scene(n_cams: int = 8, nx: int = 12, ny: int = 12, width: int = 128,
+               height: int = 128, device=None):
+    """(cameras with ground truth, true verts, faces, uvs, colors)."""
+    verts, faces, uvs = make_cloth_template(nx, ny)
+    colors = face_checker_colors(faces, verts)
+    cams = make_camera_ring(n_cams, width=width, height_px=height, device=device)
+    return render_ground_truth(cams, verts, faces, colors), verts, faces, uvs, colors
+
+
+def fit_focal(verts: np.ndarray, *, n: int, radius: float, height: float, width: int,
+              height_px: int, cover: float) -> float:
+    """The focal length at which the garment's projected bounding box spans
+    ``cover`` of the frame, in the tighter of its two directions and in the
+    tightest camera of the ring. Above 1, its extreme corners leave the
+    frame: the ring sees the square sheet turned by each camera's azimuth."""
+    cams = make_camera_ring(n, radius=radius, height=height, fx=1.0, width=2, height_px=2,
+                            device="cpu")
+    fit = []
+    for cam in cams:
+        p = np.concatenate([verts, np.ones((len(verts), 1), np.float32)], 1) \
+            @ cam.world_view_transform.numpy()
+        xy = p[:, :2] / p[:, 2:3]
+        span = xy.max(0) - xy.min(0)
+        fit.append(min(cover * width / span[0], cover * height_px / span[1]))
+    return float(min(fit))
+
+
+def write_reference_layout(data_root, output_root, subject: str, sequence: str, *,
+                           n_cams: int = 4, n_frames: int = 2, nx: int = 10, ny: int = 10,
+                           res: int = 64, width: Optional[int] = None,
+                           height: Optional[int] = None, ring_radius: float = 2.0,
+                           ring_height: float = 0.8, cover: Optional[float] = None,
+                           device=None) -> dict:
+    """A synthetic dataset in the reference's on-disk layout: per-camera
+    rgb_images/garment_masks/foreground_masks, cameras.json and smplx/*.ply
+    under the data root; template_uv.obj, point_cloud.ply and cameras.json
+    under ``<output>/<subject>/stage1``. The garment translates a little every
+    frame, so sequence tracking has real motion.
+
+    ``width``/``height`` default to ``res``. The focal length is the JAX
+    package's 200 px unless ``cover`` is given: then it is chosen so the
+    garment's bounding box spans that share of the frame (``fit_focal``).
+    The ground truth is rendered on ``device`` (the card by default)."""
+    import json
+    import os
+    from pathlib import Path
+
+    from gaussian_garments_tpu_torch.utils.io import save_image, store_ply, write_obj, write_ply
+
+    width = width or res
+    height = height or res
+    verts, faces, uvs = make_cloth_template(nx, ny)
+    colors = face_checker_colors(faces, verts)
+    ring = dict(radius=ring_radius, height=ring_height)
+    fx = 200.0 if cover is None else fit_focal(verts, n=n_cams, **ring, width=width,
+                                                 height_px=height, cover=cover)
+    cams = make_camera_ring(n_cams, **ring, fx=fx, width=width, height_px=height,
+                            device=device)
+
+    seq_dir = Path(data_root) / subject / sequence
+    cam_json = {}
+    for k, cam in enumerate(cams):
+        intr = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
+        extr = np.concatenate([cam.R.T, np.asarray(cam.T)[:, None]], axis=1)
+        cam_json[f"Cam{k:03d}"] = {"intrinsics": intr.tolist(), "extrinsics": extr.tolist(),
+                                   "ids": k}
+
+    frame_meshes, coverage = [], []
+    for t in range(n_frames):
+        v_t = verts + np.array([0.004 * t, 0.002 * t, 0.0], np.float32)
+        frame_meshes.append(v_t)
+        for k, cam in enumerate(render_ground_truth(cams, v_t, faces, colors)):
+            name = f"Cam{k:03d}"
+            mask = cam.gt_alpha_mask[0].cpu().numpy()
+            coverage.append(float(mask.mean()))
+            save_image(seq_dir / name / "rgb_images" / f"{t:05d}.png",
+                       cam.original_image.cpu().numpy().transpose(1, 2, 0))
+            save_image(seq_dir / name / "garment_masks" / f"{t:05d}.png", mask)
+            save_image(seq_dir / name / "foreground_masks" / f"{t:05d}.png", mask)
+
+        # the "body": the sheet 2 units below the garment (keeps collision inert)
+        body_v = verts.copy()
+        body_v[:, 2] -= 2.0
+        os.makedirs(seq_dir / "smplx", exist_ok=True)
+        write_ply(seq_dir / "smplx" / f"{t:05d}.ply",
+                  {a: body_v[:, i].astype(np.float32) for i, a in enumerate("xyz")})
+        _append_ply_faces(seq_dir / "smplx" / f"{t:05d}.ply", body_v, faces)
+
+    with open(seq_dir / "cameras.json", "w") as f:
+        json.dump(cam_json, f)
+    stage1 = Path(output_root) / subject / "stage1"
+    os.makedirs(stage1, exist_ok=True)
+    write_obj({"vertices": verts, "faces": faces, "uvs": uvs, "texture_faces": faces},
+              stage1 / "template_uv.obj")
+    store_ply(stage1 / "point_cloud.ply", verts[faces].mean(1), colors * 255)
+    with open(stage1 / "cameras.json", "w") as f:
+        json.dump(cam_json, f)
+    return {"verts": verts, "faces": faces, "uvs": uvs, "colors": colors,
+            "frames": frame_meshes, "cams": cams, "fx": fx,
+            "min_coverage": min(coverage)}
+
+
+def _append_ply_faces(path, verts, faces):
+    """Rewrite a vertex-only binary PLY with a triangular face element."""
+    n, m = len(verts), len(faces)
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {n}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              f"element face {m}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    farr = np.empty(m, np.dtype([("n", "u1"), ("idx", "<i4", 3)]))
+    farr["n"] = 3
+    farr["idx"] = np.asarray(faces, np.int32)
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(np.ascontiguousarray(verts, np.float32).tobytes())
+        f.write(farr.tobytes())
+
+
+def build_garment_splats(n: int, rng: np.random.RandomState):
+    """``bench.py``'s scene: n splats spread over a draped 64×64 sheet that
+    covers about a third of a 1920×1080 frame seen from (0, 0, -2.2) with
+    focal 2200. Returns (means, scales, rots, opacity (n,1), shs)."""
+    verts, faces, _ = make_cloth_template(64, 64, size=1.2, ripple=0.08)
+    tri = verts[faces]
+    fid = rng.randint(0, len(faces), n)
+    w = rng.dirichlet((1, 1, 1), n).astype(np.float32)
+    means = np.einsum("nk,nkc->nc", w, tri[fid]).astype(np.float32)
+    scales = np.exp(rng.randn(n, 3).astype(np.float32) * 0.3 + np.log(0.004))
+    rots = rng.randn(n, 4).astype(np.float32)
+    opac = (1 / (1 + np.exp(-rng.randn(n, 1)))).astype(np.float32)
+    shs = rng.randn(n, 1, 3).astype(np.float32) * 0.3
+    return means, scales, rots, opac, shs
 
 
 def write_inference_inputs(output_root, traj_path, *, name: str = "garment", nx: int = 48,
@@ -71,12 +255,12 @@ def write_inference_inputs(output_root, traj_path, *, name: str = "garment", nx:
 
     import torch
 
-    from gaussian_garments_tpu.utils.io import write_obj
     from gaussian_garments_tpu_torch.models.avatar_gaussian import rasterize_uv_bind_map
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
     from gaussian_garments_tpu_torch.models.gaussian import GaussianParams
     from gaussian_garments_tpu_torch.training.checkpoints import (
         avatar_net_state_to_jax, save_s3_ckpt)
+    from gaussian_garments_tpu_torch.utils.io import write_obj
 
     root = Path(output_root) / name
     verts, faces, uvs = make_cloth_template(nx, ny)

@@ -6,7 +6,8 @@ drives its texel Gaussians on the simulated mesh; the garments' splats are
 concatenated with visibility as an opacity mask; the splat render is
 composited over a shaded body render with depth-correct occlusion.
 
-Everything after the host bake runs on one explicit ``device``.
+Everything after the host bake runs on one ``device``, the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -18,14 +19,15 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from gaussian_garments_tpu.config import DEFAULTS
-from gaussian_garments_tpu.utils.io import read_obj
 from gaussian_garments_tpu_torch import geometry as geo
+from gaussian_garments_tpu_torch import resolve_device
+from gaussian_garments_tpu_torch.config import DEFAULTS
 from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
 from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
 from gaussian_garments_tpu_torch.ops.mesh_raster import project_mesh, rasterize_mesh
 from gaussian_garments_tpu_torch.renderer import SplatBundle
+from gaussian_garments_tpu_torch.utils.io import read_obj
 
 
 class Garment(NamedTuple):
@@ -39,12 +41,14 @@ class Garment(NamedTuple):
 
 
 def load_garment(name: str, *, sh_degree: int = 3, texture_size: int = 512,
-                 device="cpu") -> Garment:
-    """AvatarSimulationModel + AvatarNet.load_ckpt (inference.py:238-246)."""
+                 device=None) -> Garment:
+    """AvatarSimulationModel + AvatarNet.load_ckpt (inference.py:238-246).
+    ``device`` defaults to the card."""
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
     from gaussian_garments_tpu_torch.training.checkpoints import (
         avatar_net_state_from_jax, load_s3_ckpt)
 
+    device = resolve_device(device)
     root = Path(DEFAULTS.output_root) / name
     template = read_obj(root / DEFAULTS.stage1 / "template_uv.obj")
     bind, _ = AG.build_binding(template["uvs"], template["texture_faces"], texture_size,
@@ -161,10 +165,10 @@ class Simulation:
     obstacle_faces, garment_names."""
 
     def __init__(self, traj_path: str, output_path: str, *, sh_degree: int = 3,
-                 texture_size: int = 512, device="cpu"):
+                 texture_size: int = 512, device=None):
+        self.device = resolve_device(device)
         with open(traj_path, "rb") as f:
             self.pkl = pickle.load(f)
-        self.device = torch.device(device)
         self.garment_names = self.pkl["garment_names"]
         self.garments = [load_garment(n, sh_degree=sh_degree, texture_size=texture_size,
                                       device=self.device) for n in self.garment_names]
@@ -187,8 +191,8 @@ class Simulation:
         """Host part of a frame: per-frame meshes written to disk and AO/normal
         bakes (cached). Returns (garment vertex arrays, [(ambient, normal)],
         (body_v, body_f)) in numpy."""
-        from gaussian_garments_tpu.utils.io import write_obj
         from gaussian_garments_tpu_torch.data.baker import bake_textures
+        from gaussian_garments_tpu_torch.utils.io import write_obj
 
         vert_list = self.split_vertices(np.asarray(self.pkl["pred"][idx]))
         body_v = np.asarray(self.pkl["obstacle"][idx])

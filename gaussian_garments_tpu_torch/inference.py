@@ -34,6 +34,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from gaussian_garments_tpu_torch import resolve_device
+
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     parser = ArgumentParser(description="Inference parameters")
@@ -55,16 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return args
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
-                           "pass --device cpu to run the plain CPU path")
-    return device
-
-
 def load_camera(garment_name: str, args, device):
-    from gaussian_garments_tpu.config import DEFAULTS
+    from gaussian_garments_tpu_torch.config import DEFAULTS
     from gaussian_garments_tpu_torch.utils.camera import camera_from_json_params
 
     cam_json = Path(DEFAULTS.output_root) / garment_name / DEFAULTS.stage1 / "cameras.json"
@@ -107,10 +101,10 @@ def render_frame(simu, idx: int, camera, bg: torch.Tensor, sh_degree: int, cfg):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    from gaussian_garments_tpu.utils.io import save_image
     from gaussian_garments_tpu_torch import pin_full_f32
     from gaussian_garments_tpu_torch.doll import Simulation
     from gaussian_garments_tpu_torch.renderer import RasterConfig
+    from gaussian_garments_tpu_torch.utils.io import save_image
 
     args = parse_args(argv)
     device = resolve_device(args.device)

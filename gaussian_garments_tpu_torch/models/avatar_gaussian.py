@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gaussian_garments_tpu_torch import geometry as geo
+from gaussian_garments_tpu_torch import resolve_device
 from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
 
@@ -64,8 +65,10 @@ class AvatarBinding:
 
 def build_binding(uvs: np.ndarray, texture_faces: np.ndarray, res: int,
                   bind_map: Optional[np.ndarray] = None,
-                  device="cpu") -> Tuple[AvatarBinding, np.ndarray]:
-    """Bind map + barycentric anchors (reference __init__ :47-65)."""
+                  device=None) -> Tuple[AvatarBinding, np.ndarray]:
+    """Bind map + barycentric anchors (reference __init__ :47-65), on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     if bind_map is None:
         bind_map = rasterize_uv_bind_map(uvs, texture_faces, res)
     gs_u, gs_v = np.where(bind_map > -1)

@@ -125,9 +125,15 @@ def project_gaussians(
     opacities: Optional[torch.Tensor] = None,
     sh_degree: int = 0,
     scaling_modifier: float = 1.0,
+    screen_offset: Optional[torch.Tensor] = None,
 ) -> ProjectedGaussians:
     """Project N Gaussians into one camera (argument contract of the CUDA
-    rasterizer call: scales+rotations or cov3d_precomp; shs or colors)."""
+    rasterizer call: scales+rotations or cov3d_precomp; shs or colors).
+
+    ``screen_offset`` (N,2), if given, is added to the pixel-space means: a
+    differentiable hook whose gradient is ∂L/∂mean2D, the reference's
+    ``screenspace_points.retain_grad()`` channel for densification stats. The
+    cull still uses the means without it, as in the JAX package."""
     n = means3d.shape[0]
     cov3d = build_cov3d(scales, rotations, scaling_modifier) if cov3d_precomp is None \
         else cov3d_precomp
@@ -154,6 +160,8 @@ def project_gaussians(
     mx = ((p_proj[:, 0] + 1.0) * image_width - 1.0) * 0.5
     my = ((p_proj[:, 1] + 1.0) * image_height - 1.0) * 0.5
     means2d = torch.stack([mx, my], dim=-1)
+    if screen_offset is not None:
+        means2d = means2d + screen_offset
 
     visible = ((depth > 0.2) & (det != 0.0) & (mx + radius >= 0) & (mx - radius < image_width)
                & (my + radius >= 0) & (my - radius < image_height))

@@ -1,9 +1,9 @@
-"""Host ray casting through the shared native BVH.
+"""Host ray casting through the port's native BVH.
 
 Port of ``raycast_first_hit`` from ``gaussian_garments_tpu/ops/raytrace.py``.
-It uses the C++ BVH of ``gaussian_garments_tpu.native`` (no jax in its import
-chain) and raises when the library cannot be built: the numpy
-Möller–Trumbore sweep would take hours at 262K texels × 64 AO samples.
+It uses the C++ BVH of ``gaussian_garments_tpu_torch.native``, which raises
+when the library cannot be built: the numpy Möller–Trumbore sweep would take
+hours at 262K texels × 64 AO samples.
 """
 from __future__ import annotations
 
@@ -13,14 +13,10 @@ import numpy as np
 
 
 def bvh(vertices: np.ndarray, faces: np.ndarray):
-    """A reusable BVH over one mesh; raises if the native library is missing."""
-    from gaussian_garments_tpu.native import BVH
+    """A reusable BVH over one mesh."""
+    from gaussian_garments_tpu_torch.native import BVH
 
-    try:
-        return BVH(vertices, faces)
-    except RuntimeError as e:
-        raise RuntimeError("the native BVH ray caster (gaussian_garments_tpu/native, "
-                           "built with g++ at first use) is required") from e
+    return BVH(vertices, faces)
 
 
 def raycast_first_hit(origins: np.ndarray, dirs: np.ndarray, vertices: np.ndarray,

@@ -11,6 +11,10 @@ the JAX package reads what the port writes.
 ``avatar_net_state_from_jax`` / ``avatar_net_state_to_jax`` convert the
 weights: a state_dict key of the port's AvatarNet is the Flax path joined
 with dots. Orbax checkpoints (``net.orbax``) are not read yet.
+
+``s2_state_from_jax`` / ``s2_state_to_jax`` convert a stage-2 training state
+(splats, statistics, both Adam states, binding, mesh) to and from the JAX
+package's ``S2State`` fields as numpy arrays.
 """
 from __future__ import annotations
 
@@ -123,3 +127,80 @@ def avatar_net_state_to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, 
     for k, v in state_dict.items():
         (buffers if _BUFFER_KEY.search(k) else params)[k] = v.detach().cpu().numpy()
     return _unflatten(params), _unflatten(buffers)
+
+
+# ---------------------------------------------------------------------------
+# stage-2 state
+# ---------------------------------------------------------------------------
+
+AUX_NAMES = ("alive", "max_radii2d", "xyz_gradient_accum", "denom")
+MESH_ARRAYS = ("v", "vt", "f", "v_mass", "f_area", "dm_inv", "f_connectivity",
+               "f_connectivity_edges", "edges", "virtual_edge", "ve_len", "nn_points",
+               "nn_normals", "tar_v")
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def s2_state_to_jax(state) -> dict:
+    """The port's ``training.s2.S2State`` as the JAX package's ``S2State``
+    fields in nested dicts of numpy arrays (int32 indices, as the JAX package
+    keeps them): params, aux, splat_adam {step, mu, nu}, binding, mesh (with
+    ``has_body``), vert_adam {step, mu, nu}, iteration."""
+    idx = lambda x: _np(x).astype(np.int32)
+    fields = lambda obj, names: {k: _np(getattr(obj, k)) for k in names}
+    mesh = {k: _np(getattr(state.mesh, k)) for k in MESH_ARRAYS}
+    for k in ("f", "f_connectivity", "f_connectivity_edges", "edges", "virtual_edge"):
+        mesh[k] = mesh[k].astype(np.int32)
+    mesh["has_body"] = bool(state.mesh.has_body)
+    adam = state.splat_adam
+    return {
+        "params": fields(state.params, PARAM_NAMES),
+        "aux": fields(state.aux, AUX_NAMES),
+        "splat_adam": {"step": np.int32(adam.step), "mu": fields(adam.mu, PARAM_NAMES),
+                       "nu": fields(adam.nu, PARAM_NAMES)},
+        "binding": idx(state.binding),
+        "mesh": mesh,
+        "vert_adam": {"step": np.int32(state.vert_adam.step), "mu": _np(state.vert_adam.mu),
+                      "nu": _np(state.vert_adam.nu)},
+        "iteration": np.int32(state.iteration),
+    }
+
+
+def s2_state_from_jax(tree, device=None):
+    """A JAX ``S2State`` (its numpy leaves, as objects with the JAX field
+    names or as the dicts of ``s2_state_to_jax``) -> the port's S2State on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    from gaussian_garments_tpu_torch import resolve_device
+    from gaussian_garments_tpu_torch.models.adam import TensorAdam
+    from gaussian_garments_tpu_torch.models.gaussian import AdamState, GaussianAux
+    from gaussian_garments_tpu_torch.models.mesh_model import MeshState
+    from gaussian_garments_tpu_torch.training.s2 import S2State
+
+    device = resolve_device(device)
+
+    def t(x):
+        a = np.asarray(x)
+        dtype = torch.int64 if a.dtype.kind in "iu" else None
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    group = lambda g, names: {k: t(_field(g, k)) for k in names}
+    adam, vadam, mesh = (_field(tree, k) for k in ("splat_adam", "vert_adam", "mesh"))
+    mesh_arrays = {k: (t(_field(mesh, k)) if _field(mesh, k) is not None else None)
+                   for k in MESH_ARRAYS}
+    return S2State(
+        params=GaussianParams(**group(_field(tree, "params"), PARAM_NAMES)),
+        aux=GaussianAux(**group(_field(tree, "aux"), AUX_NAMES)),
+        splat_adam=AdamState(step=int(_field(adam, "step")),
+                             mu=GaussianParams(**group(_field(adam, "mu"), PARAM_NAMES)),
+                             nu=GaussianParams(**group(_field(adam, "nu"), PARAM_NAMES))),
+        binding=t(_field(tree, "binding")),
+        mesh=MeshState(**mesh_arrays, has_body=bool(_field(mesh, "has_body"))),
+        vert_adam=TensorAdam(int(_field(vadam, "step")), t(_field(vadam, "mu")),
+                             t(_field(vadam, "nu"))),
+        iteration=int(_field(tree, "iteration")))

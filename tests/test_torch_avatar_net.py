@@ -40,7 +40,7 @@ def garment():
     verts, faces, uvs = jsyn.make_cloth_template(7, 6)
     verts = verts + np.random.RandomState(3).randn(*verts.shape).astype(np.float32) * 0.02
     jbind, jmap = JAG.build_binding(uvs, faces, RES)
-    tbind, tmap = TAG.build_binding(uvs, faces, RES)
+    tbind, tmap = TAG.build_binding(uvs, faces, RES, device="cpu")
     return verts, faces, uvs, jbind, jmap, tbind, tmap
 
 

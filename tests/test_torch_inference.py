@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from gaussian_garments_tpu.config import DEFAULTS
+from gaussian_garments_tpu_torch.config import DEFAULTS as TORCH_DEFAULTS
 
 REPO = Path(__file__).resolve().parent.parent
 RES, DEG, W, H, FRAMES = 32, 1, 64, 64, 2
@@ -43,6 +44,7 @@ def world(tmp_path_factory):
 @pytest.fixture
 def output_root(world, monkeypatch):
     monkeypatch.setattr(DEFAULTS, "output_root", str(world[1]))
+    monkeypatch.setattr(TORCH_DEFAULTS, "output_root", str(world[1]))
     return world
 
 
@@ -114,10 +116,10 @@ def _two_garment_updates(rng):
 
     verts, faces, uvs = jsyn.make_cloth_template(6, 6)
     ring = dict(radius=0.4, height=2.2, width=W, height_px=H)
-    jc, tc = jsyn.make_camera_ring(1, **ring)[0], tsyn.make_camera_ring(1, **ring)[0]
+    jc, tc = jsyn.make_camera_ring(1, **ring)[0], tsyn.make_camera_ring(1, **ring, device="cpu")[0]
     toward = np.asarray(jc.camera_center) / np.linalg.norm(np.asarray(jc.camera_center))
     jbind, _ = JAG.build_binding(uvs, faces, RES)
-    tbind, _ = TAG.build_binding(uvs, faces, RES)
+    tbind, _ = TAG.build_binding(uvs, faces, RES, device="cpu")
     n = tbind.binding.shape[0]
     p = dict(xyz=rng.randn(n, 3) * 0.01, features_dc=rng.randn(n, 1, 3) * 0.3,
              features_rest=rng.randn(n, 3, 3) * 0.1, scaling=rng.randn(n, 3) * 0.2 - 4.5,
@@ -230,14 +232,21 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax, flax or orbax."""
+    """Every module of the port imports with jax, flax, orbax and the JAX
+    package ``gaussian_garments_tpu`` blocked, and none of them is loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'flax', 'orbax', 'gaussian_garments_tpu')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import gaussian_garments_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import gaussian_garments_tpu_torch.inference\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax'))\n"
+        "import gaussian_garments_tpu_torch.inference, gaussian_garments_tpu_torch.s2_registration\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -81,12 +81,12 @@ def test_camera_matrices(json_cam):
         params = {"intrinsics": [[900.0, 0, 470], [0, 910.0, 640], [0, 0, 1]],
                   "extrinsics": [[0.96, 0.0, 0.28, 0.1], [0.0, 1.0, 0.0, -0.2],
                                  [-0.28, 0.0, 0.96, 2.5]]}
-        tc = TC.camera_from_json_params(params, h=1280, w=940)
+        tc = TC.camera_from_json_params(params, h=1280, w=940, device="cpu")
         jc = JC.camera_from_json_params(params, h=1280, w=940)
     else:
         kw = dict(R=np.eye(3), T=np.array([0.1, -0.2, 3.0]), fx=150, fy=160, cx=33, cy=30,
                   width=64, height=60)
-        tc, jc = TC.make_camera(**kw), JC.make_camera(**kw)
+        tc, jc = TC.make_camera(**kw, device="cpu"), JC.make_camera(**kw)
     for f in ("world_view_transform", "full_proj_transform", "camera_center"):
         close(getattr(tc, f), getattr(jc, f), err_msg=f)
     assert tc.tanfovx == pytest.approx(jc.tanfovx, rel=1e-12)
@@ -97,7 +97,8 @@ def test_camera_matrices(json_cam):
 def test_camera_ring_matches_jax():
     from gaussian_garments_tpu.data import synthetic as jsyn
 
-    tcs = tsyn.make_camera_ring(3, radius=0.4, height=2.2, width=64, height_px=64)
+    tcs = tsyn.make_camera_ring(3, radius=0.4, height=2.2, width=64, height_px=64,
+                               device="cpu")
     jcs = jsyn.make_camera_ring(3, radius=0.4, height=2.2, width=64, height_px=64)
     for tc, jc in zip(tcs, jcs):
         close(tc.full_proj_transform, jc.full_proj_transform)
@@ -148,7 +149,7 @@ def test_project_gaussians(rng, deg):
     means, scales, rots, opac, shs = _scene(rng, deg=deg)
     kw = dict(R=np.eye(3), T=np.array([0.05, -0.1, 1.2]), fx=120, fy=125, cx=35, cy=30,
               width=72, height=60)
-    tc, jc = TC.make_camera(**kw), JC.make_camera(**kw)
+    tc, jc = TC.make_camera(**kw, device="cpu"), JC.make_camera(**kw)
     common = dict(image_width=72, image_height=60, tanfovx=jc.tanfovx, tanfovy=jc.tanfovy,
                   sh_degree=deg)
     jp = JP.project_gaussians(

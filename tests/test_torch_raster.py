@@ -54,7 +54,7 @@ def _project_both(arrays, width=W, height=H):
     means, scales, rots, opac, shs = arrays
     kw = dict(R=np.eye(3), T=np.array([0.0, 0, 3.0]), fx=150, fy=150, cx=width / 2,
               cy=height / 2, width=width, height=height)
-    jc, tc = j_make_camera(**kw), make_camera(**kw)
+    jc, tc = j_make_camera(**kw), make_camera(**kw, device="cpu")
     common = dict(image_width=width, image_height=height, tanfovx=jc.tanfovx,
                   tanfovy=jc.tanfovy, sh_degree=0)
     jp = j_project(jnp.asarray(means), jc.world_view_transform, jc.full_proj_transform,
@@ -185,7 +185,7 @@ def _mesh_cameras():
     from gaussian_garments_tpu.data import synthetic as jsyn
 
     kw = dict(radius=0.4, height=2.2, width=72, height_px=56)
-    return jsyn.make_camera_ring(2, **kw), tsyn.make_camera_ring(2, **kw)
+    return jsyn.make_camera_ring(2, **kw), tsyn.make_camera_ring(2, **kw, device="cpu")
 
 
 @pytest.mark.parametrize("cam", [0, 1])
