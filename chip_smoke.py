@@ -7,29 +7,52 @@ NVIDIA GPU.
 Phases (any failure exits non-zero; nothing falls back to the CPU or to a
 plain version):
 1. card and versions (exits non-zero without CUDA);
-2. build both compositor kernels from ``gaussian_garments_tpu_torch/csrc``,
-   one nvcc per source, started together;
+2. build every kernel source of ``gaussian_garments_tpu_torch/csrc`` named in
+   the registry ``ops/cuda.py``, one nvcc per source, started together;
 3. ``composite_fwd`` against its plain torch version on seeded 20K-splat
    scenes at 256² (one whose wide splats hit the 6-tile clip), and against
    the exact oracle where nothing is clipped; ``composite_bwd`` against its
    plain version on the same scenes and on one saturated tile, and against
    torch autograd through the oracle at opacity ≤ 0.35;
 4. both kernels at ``bench.py``'s shape (150K splats, 1920×1080), timed;
-5. the inference path at production width (texture 512, SH degree 3,
+5. the probes, through their entry points ``python -m
+   gaussian_garments_tpu_torch.probes.{gather,composite_null,grid_overhead}``:
+   the gather kernels at every row of the TPU scripts' table (one run per
+   row), ``probe_null`` and ``probe_alpha_only`` beside ``composite_fwd`` at
+   ``bench.py``'s scene, the grid-overhead ladder a–e over its work list.
+   Each kernel is held against its plain version (gathers exact, checksums
+   1e-6 × max, ``alpha_only`` 1e-5 × max) and timed (CUDA events, mean of 20)
+   beside its plain version, its library call where there is one, and its
+   bound from this run's inputs;
+6. the inference path at production width (texture 512, SH degree 3,
    940×1280, 3 frames) through ``gaussian_garments_tpu_torch.inference.main``,
    and on frame 0's bundle the forward kernel against its plain version;
-6. the stage-2 slice at full width through
+7. the stage-2 slice at full width through
    ``gaussian_garments_tpu_torch.s2_registration.main``: a synthetic 64×64
    sheet (7,938 faces), 12 cameras at 940×1280, 2 frames, 4 cameras per step,
    a template run then a sequence run, with the artifacts, the losses, the
    densification and the kernels' launch counts checked; then the device split
    of one iteration and both kernels against their plain versions at that
    shape, timed;
-7. the kernel summary line, the card line and the result line.
+8. the stage-3 slice at full width on phase 7's output root through
+   ``gaussian_garments_tpu_torch.s3_appearance.main``: texture 512 (262,144
+   texel splats), SH degree 3, the StyleUNet at full width, 940×1280, one item
+   a step; the 12 cameras × 2 frames with llffhold 12 leave 22 training items
+   × the 5 epochs that s3_appearance fixes = 110 steps. Cuts (printed before the run):
+   ``--pre_train_iterations`` 3000 → 10 and ``--save_iterations`` 3000 → 20,
+   so that both step kinds run, each epoch saves once mid-epoch and once at
+   its end, and each save evaluates the 2 held-out items. The checkpoint must
+   load back through the port, the losses must be finite, the img loss must
+   fall, and both compositor kernels must launch; then the device split of one
+   full step and both kernels against their plain versions at that shape,
+   timed;
+9. the kernel summary line, the card line and the result line.
 
-Iteration counts of phase 6 are cuts of the production schedule (printed
-before the run). Imports nothing of JAX. Every number it prints is measured
-in this run, except ``bound_ms``, which it computes from this run's inputs.
+Iteration counts of phases 7 and 8 are cuts of the production schedule.
+Imports nothing of JAX. Every number it prints is measured in this run,
+except ``bound_ms``, which it computes from this run's inputs. Launch counts
+are zeroed just before each path is driven and read just after; the
+compositor kernels' ``launches`` in the summary are those of the stage-3 run.
 """
 import json
 import os
@@ -40,10 +63,6 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCES = {"composite_fwd": "gaussian_garments_tpu_torch/csrc/composite_fwd.cu",
-           "composite_bwd": "gaussian_garments_tpu_torch/csrc/composite_bwd.cu"}
-REPLACES = {"composite_fwd": "gaussian_garments_tpu/ops/pallas_tiles.py:666",
-            "composite_bwd": "gaussian_garments_tpu/ops/pallas_tiles.py:830"}
 WIDTH, HEIGHT, TEXTURE, SH_DEGREE, FRAMES = 940, 1280, 512, 3, 3
 S2_CAMS, S2_NX, S2_FRAMES, S2_PER_STEP = 12, 64, 2, 4
 S2_TEMPLATE = ["-tf", "0", "--first_frame_iterations", "150", "--ff_collision_iteration", "50",
@@ -58,11 +77,14 @@ S2_CUTS = ("first_frame_iterations 10000 -> 150, ff_collision_iteration 2000 -> 
            "densification_interval 100 -> 50, opacity_reset_interval 3000 -> 100; "
            "densify_grad_threshold 2e-4 -> 4e-8: the statistics are pixel-space gradients "
            "of a loss averaged over 4 x 940 x 1280 pixels, ~3e-8 on this scene")
-# NVIDIA H100 SXM: HBM3 at 3.35 TB/s (data sheet); special-function units at
-# 16 results per clock per SM (CUDA C++ programming guide, arithmetic
-# instruction throughput, compute capability 9.0) × 132 SMs × 1.98 GHz boost.
-HBM_BYTES_S = 3.35e12
-SFU_OPS_S = 16 * 132 * 1.98e9
+S3_ARGS = ["-s", "subj", "--texture_size", str(TEXTURE), "--sh_degree", str(SH_DEGREE),
+           "--items_per_step", "1", "--pre_train_iterations", "10", "--save_iterations", "20",
+           "--device", "cuda"]
+S3_CUTS = ("pre_train_iterations 3000 -> 10, save_iterations 3000 -> 20; s3_appearance's "
+           "fixed 5 epochs stay: 22 training items x 5 epochs = 110 steps, 10 pre-training (net "
+           "only), 100 full; 10 saves, each with an eval of the 2 held-out items")
+S3_STEPS, S3_PRE = 110, 10
+PROBE_REPS = 20
 
 
 def check(cond, msg):
@@ -72,18 +94,6 @@ def check(cond, msg):
 
 def max_err(a, b):
     return float((a - b).abs().max())
-
-
-def cuda_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare_fwd(torch, k, p, depth_range, what):
@@ -123,24 +133,16 @@ def cotangents(torch, dev, h, w, seed):
     return g[:3].contiguous(), g[3:4].contiguous(), g[4:5].contiguous()
 
 
-def project_arrays(torch, dev, cam, arrays, w, h):
-    from gaussian_garments_tpu_torch.ops.projection import project_gaussians
-    t = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
-    return project_gaussians(
-        t["means"], cam.world_view_transform, cam.full_proj_transform, cam.camera_center,
-        image_width=w, image_height=h, tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
-        scales=t["scales"], rotations=t["rots"], shs=t["shs"],
-        opacities=t["opacity"].reshape(-1), sh_degree=0)
-
-
 def work(torch, pairs, out, h, w):
     """Bytes each kernel must move and the pixel-pair evaluations this run's
     data needs. Forward: a pixel evaluates its tile's pairs until it saturates
     (T < 1e-4 after its last contributing pair) or the range ends. Backward: a
     pixel walks from its last contributing pair back to its tile's start."""
+    import math
+
     from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.ops.rasterizer_ref import T_EPS
-    import math
+    from gaussian_garments_tpu_torch.probes.common import HBM_BYTES_S, SFU_OPS_S
     starts = pairs.ranges[:-1].long()
     counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
     tiled = lambda x, fill: tiles._tile_pixels(x, pairs.tiles_x, pairs.tiles_y, fill)
@@ -165,14 +167,16 @@ def work(torch, pairs, out, h, w):
 
 
 def time_both(torch, tiles, pairs, out, cot, h, w, what):
+    from gaussian_garments_tpu_torch.probes.common import cuda_ms
+
     kw = dict(image_height=h, image_width=w)
     args = (pairs, out.final_logt, out.last_pair, *cot)
     res = {
-        "composite_fwd": (cuda_ms(torch, lambda: tiles.composite_tiles_cuda(pairs, **kw), 20),
-                          cuda_ms(torch, lambda: tiles.composite_tiles_plain(pairs, **kw), 1)),
+        "composite_fwd": (cuda_ms(lambda: tiles.composite_tiles_cuda(pairs, **kw), 20),
+                          cuda_ms(lambda: tiles.composite_tiles_plain(pairs, **kw), 1)),
         "composite_bwd": (
-            cuda_ms(torch, lambda: tiles.composite_tiles_backward_cuda(*args, **kw), 20),
-            cuda_ms(torch, lambda: tiles.composite_tiles_backward_plain(*args, **kw), 1)),
+            cuda_ms(lambda: tiles.composite_tiles_backward_cuda(*args, **kw), 20),
+            cuda_ms(lambda: tiles.composite_tiles_backward_plain(*args, **kw), 1)),
     }
     bounds = work(torch, pairs, out, h, w)
     counts = pairs.ranges[1:] - pairs.ranges[:-1]
@@ -192,6 +196,7 @@ def phase_kernel_checks(torch, dev):
     from gaussian_garments_tpu_torch.data.synthetic import make_splat_scene
     from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.ops.rasterizer_ref import rasterize_reference
+    from gaussian_garments_tpu_torch.probes.scene import project_arrays
     from gaussian_garments_tpu_torch.utils.camera import make_camera
 
     size = 256
@@ -204,7 +209,7 @@ def phase_kernel_checks(torch, dev):
     # oracle scene keeps opacities ≤ 0.35, where those tails are below 1/255
     for seed, (n_wide, max_opacity, oracle) in enumerate(
             ((0, 0.35, True), (0, 1.0, False), (8, 1.0, False))):
-        proj = project_arrays(torch, dev, cam, make_splat_scene(
+        proj = project_arrays(cam, make_splat_scene(
             20000, 0, n_wide=n_wide, max_opacity=max_opacity), size, size)
         pairs = tiles.bin_pairs(proj, image_width=size, image_height=size)
         k = tiles.composite_tiles(pairs, image_height=size, image_width=size)
@@ -244,7 +249,7 @@ def phase_kernel_checks(torch, dev):
               "opacity": np.full((n,), 0.97, np.float32)}
     cam64 = make_camera(np.eye(3), np.array([0.0, 0, 3.0]), fx=150, fy=150, cx=small / 2,
                         cy=small / 2, width=small, height=small, device=dev)
-    proj = project_arrays(torch, dev, cam64, arrays, small, small)
+    proj = project_arrays(cam64, arrays, small, small)
     pairs = tiles.bin_pairs(proj, image_width=small, image_height=small)
     out = tiles.composite_tiles_cuda(pairs, image_height=small, image_width=small)
     counts = pairs.ranges[1:] - pairs.ranges[:-1]
@@ -255,7 +260,7 @@ def phase_kernel_checks(torch, dev):
         f"{int(counts.max())} pairs"))
 
     # the backward kernel through autograd against autograd of the exact oracle
-    proj = project_arrays(torch, dev, cam, make_splat_scene(3000, 3, max_opacity=0.35),
+    proj = project_arrays(cam, make_splat_scene(3000, 3, max_opacity=0.35),
                           size, size)
     target = torch.as_tensor(np.random.RandomState(2).rand(3, size, size).astype(np.float32),
                              device=dev)
@@ -281,24 +286,16 @@ def phase_kernel_checks(torch, dev):
 
 
 def phase_bench_shape(torch, dev):
-    import numpy as np
-    from gaussian_garments_tpu_torch.data.synthetic import build_garment_splats
     from gaussian_garments_tpu_torch.ops import tiles
-    from gaussian_garments_tpu_torch.utils.camera import make_camera
+    from gaussian_garments_tpu_torch.probes.scene import HEIGHT as h, WIDTH as w, bench_scene
 
-    w, h = 1920, 1080
-    means, scales, rots, opac, shs = build_garment_splats(150_000, np.random.RandomState(0))
-    cam = make_camera(np.eye(3), np.array([0.0, 0.0, 2.2]), fx=2200.0, fy=2200.0, cx=w / 2,
-                      cy=h / 2, width=w, height=h, device=dev)
-    proj = project_arrays(torch, dev, cam, {"means": means, "scales": scales, "rots": rots,
-                                            "opacity": opac, "shs": shs}, w, h)
+    proj, pairs = bench_scene(dev)
     with torch.no_grad():
-        pairs = tiles.bin_pairs(proj, image_width=w, image_height=h)
         k = tiles.composite_tiles_cuda(pairs, image_height=h, image_width=w)
         p = tiles.composite_tiles_plain(pairs, image_height=h, image_width=w)
         live = proj.radii > 0
         compare_fwd(torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()),
-                    f"bench.py shape, 150000 splats @ {w}x{h}")
+                    f"bench.py shape, {proj.radii.numel()} splats @ {w}x{h}")
         cot = cotangents(torch, dev, h, w, 11)
         compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, f"bench.py shape @ {w}x{h}")
         time_both(torch, tiles, pairs, k, cot, h, w, f"bench.py shape @ {w}x{h}")
@@ -312,6 +309,7 @@ def phase_inference(torch, dev, tmp, out_root):
     from gaussian_garments_tpu_torch.doll import Simulation, concat_bundle
     from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from gaussian_garments_tpu_torch.probes.common import cuda_ms
     from gaussian_garments_tpu_torch.renderer import project
 
     traj = os.path.join(tmp, "traj.pkl")
@@ -366,8 +364,8 @@ def phase_inference(torch, dev, tmp, out_root):
                     f"inference frame 0 @ {WIDTH}x{HEIGHT} (garment covers {framed:.3f}): "
                     f"{proj.means2d.shape[0]} splats, {int(pairs.ranges[-1])} pairs, max "
                     f"{int(counts.max())} per tile")
-        ms = cuda_ms(torch, lambda: tiles.composite_tiles_cuda(pairs, **kw), 20)
-        plain = cuda_ms(torch, lambda: tiles.composite_tiles_plain(pairs, **kw), 1)
+        ms = cuda_ms(lambda: tiles.composite_tiles_cuda(pairs, **kw), 20)
+        plain = cuda_ms(lambda: tiles.composite_tiles_plain(pairs, **kw), 1)
         bound, by, nbytes, evals = work(torch, pairs, k, HEIGHT, WIDTH)["composite_fwd"]
         print(f"  composite_fwd at the inference shape: kernel {ms:.4f} ms (CUDA events, mean "
               f"of 20), plain {plain:.2f} ms (mean of 1), bound {bound:.4f} ms by {by} "
@@ -595,6 +593,193 @@ def phase_s2_split(torch, dev, out_root):
     return errs, timing
 
 
+def phase_probes(torch):
+    """The probe kernels through the probes' entry points. Each run's kernels
+    are held against their plain versions inside the run; their launch
+    counts are zeroed just before the run and read just after."""
+    from gaussian_garments_tpu_torch.probes import composite_null, gather, grid_overhead
+
+    runs = [(f"gather probe, row {row}", gather, ["--rows", row]) for row in gather.ROWS]
+    runs += [("composite_null probe", composite_null, []),
+             ("grid_overhead probe", grid_overhead, [])]
+    rows = []
+    for what, module, argv in runs:
+        for wrapper in module.WRAPPERS.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        out = module.main(argv + ["--device", "cuda", "--reps", str(PROBE_REPS)])
+        torch.cuda.synchronize()
+        for r in out if isinstance(out, list) else out["rows"]:
+            r["launches"] = module.WRAPPERS[r["name"]].launches
+            if module is gather:
+                r["name"] = f"{r['name']}@{r['row']}"
+            check(r["ok"], f"{what}: {r['name']} differs from its plain version by "
+                           f"{r['max_abs_err']} (tolerance {r['tolerance']})")
+            check(r["launches"] > 0, f"{what}: {r['name']} was not launched")
+            rows.append(r)
+        print(f"{what}: {time.perf_counter() - t0:.1f} s; launches " + ", ".join(
+            f"{name} {w.launches}" for name, w in module.WRAPPERS.items() if w.launches))
+    return rows
+
+
+def phase_s3(torch, dev, out_root):
+    """``s3_appearance.main`` on the stage-2 output root (see the module doc)."""
+    import numpy as np
+    from gaussian_garments_tpu_torch import s3_appearance
+    from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
+    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.training.checkpoints import (
+        avatar_net_state_from_jax, load_s3_ckpt, s3_state_from_jax)
+
+    print(f"s3 cuts: {S3_CUTS}")
+    tiles.composite_tiles_cuda.launches = 0
+    tiles.composite_tiles_backward_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    stats = s3_appearance.main(S3_ARGS)
+    wall = time.perf_counter() - t0
+    launches = {"composite_fwd": tiles.composite_tiles_cuda.launches,
+                "composite_bwd": tiles.composite_tiles_backward_cuda.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = stats["steps"]
+    n_steps = steps["pre"]["n"] + steps["full"]["n"]
+    print(f"s3 run: {stats['n_items']} training items, {stats['n_texels']} texel splats, "
+          f"{n_steps} steps in {wall:.1f} s wall; launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()))
+    check(n_steps == S3_STEPS and steps["pre"]["n"] == S3_PRE, f"s3 steps {steps}")
+    check(launches["composite_bwd"] >= n_steps and launches["composite_fwd"] >= n_steps,
+          f"s3: kernels launched {launches} times for {n_steps} steps")
+
+    stage3 = os.path.join(out_root, "subj", "stage3")
+    expect = [os.path.join("ckpt", f) for f in ("net.pkl", "optm.pkl", "info.txt")]
+    expect += [os.path.join("logs", "train.jsonl"), os.path.join("debug", "e01_i000000.png"),
+               os.path.join("debug", "e05_i000020.png")]
+    missing = [f for f in expect if not os.path.exists(os.path.join(stage3, f))]
+    check(not missing, f"missing s3 artifacts: {missing}")
+    with open(os.path.join(stage3, "ckpt", "info.txt")) as f:
+        check(f.read().strip() == "Epoch 5", "info.txt does not say Epoch 5")
+    ck = load_s3_ckpt(stage3)
+    state = s3_state_from_jax(ck, device=dev)
+    net = AvatarNet(texture_size=TEXTURE, sh_degree=SH_DEGREE).to(dev)
+    net.load_state_dict(avatar_net_state_from_jax(ck["net_params"], ck["net_buffers"]))
+    n_params = sum(v.numel() for v in net.parameters())
+    check(ck["epoch"] == 5 and ck["iteration"] == n_steps and state.net_adam.step == n_steps
+          and state.splat_adam.step == n_steps - S3_PRE, "checkpoint counters")
+    check(state.splats.xyz.shape == (stats["n_texels"], 3), "checkpoint splats")
+    check(all(bool(torch.isfinite(v).all()) for v in state.net_params.values()),
+          "non-finite net weights in the checkpoint")
+    print(f"s3 checkpoint loads through the port: epoch {ck['epoch']}, iteration "
+          f"{ck['iteration']}, AvatarNet {n_params} parameters, "
+          f"{state.splats.xyz.shape[0]} splats")
+
+    losses = stats["losses"]
+    check(all(np.isfinite(v) for e in losses for k, v in e.items()
+              if k not in ("epoch", "it", "kind")), "non-finite s3 loss")
+    per_epoch = [np.mean([e["img"] for e in losses if e["epoch"] == ep]) for ep in range(1, 6)]
+    print("s3 img loss, mean per epoch: " + ", ".join(f"{v:.5f}" for v in per_epoch))
+    check(per_epoch[-1] < per_epoch[0], "s3: the img loss did not fall")
+    check(len(stats["eval"]) == 10, f"s3: {len(stats['eval'])} evals")
+    for q in stats["eval"]:
+        check(all(np.isfinite(v) for v in q.values()), f"s3 eval {q}")
+    for q in (stats["eval"][0], stats["eval"][-1]):
+        print(f"s3 eval at epoch {q['epoch']}, step {q['step']}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in q.items() if k.startswith("eval_")))
+    for kind, m in steps.items():
+        print(f"s3 {kind} steps: {m['n']}, {m['seconds'] / m['n']:.4f} s/step (host clock, each "
+              f"step ends in a synchronize; item loading not included)")
+    print(f"s3 peak device memory: {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    return launches
+
+
+def phase_s3_split(torch, dev):
+    """Device split of one stage-3 step at full width, from the trained
+    checkpoint and the first training item, each piece on the host clock
+    around synchronize (mean of 5); then both kernels at that shape against
+    their plain versions, timed."""
+    from torch.func import functional_call
+    from gaussian_garments_tpu_torch import s3_appearance
+    from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
+    from gaussian_garments_tpu_torch.models import gaussian as G
+    from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
+    from gaussian_garments_tpu_torch.models.adam import tree_adam_step
+    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.renderer import _project
+    from gaussian_garments_tpu_torch.training import s3 as S3
+    from gaussian_garments_tpu_torch.utils.losses import ssim
+
+    _, run = s3_appearance.prepare(S3_ARGS)
+    check(run.start_epoch == 6, "the s3 checkpoint did not resume")
+    state, bind, mesh_f, net = run.state, run.bind, run.mesh_f, run.net
+    item = run.make_item([run.dataset[0]])
+    w, h, mesh_v = item.width, item.height, item.mesh_v[0]
+    reps, ms = 5, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3 / reps
+        return out
+
+    steps = {kind: S3.make_s3_step(net, run.run_args, sh_degree=SH_DEGREE,
+                                   train_gaussians=kind == "full") for kind in ("pre", "full")}
+    for step in steps.values():      # warm-up
+        step(state, bind, mesh_f, item)
+    lrs = S3.splat_lrs(run.run_args)
+    for _ in range(reps):
+        params = {k: v.detach().requires_grad_(True) for k, v in state.net_params.items()}
+        frames = MG.compute_face_frames(mesh_v, mesh_f)
+        rows = MG.gather_frame_rows(frames, bind.binding, mesh_v, mesh_f)
+        net_in = (item.ambient[0], item.normal[0], item.world_view[0], item.campos[0], bind,
+                  mesh_v, mesh_f, frames)
+        timed("AvatarNet (StyleUNet) fwd+bwd", lambda: torch.autograd.grad(functional_call(
+            net, (params, state.net_buffers), net_in, {"rows": rows}).square().mean(),
+            list(params.values()), allow_unused=True))
+        timed("visibility (256² depth test)", lambda: AG.get_visible_mask_depth(
+            bind, mesh_v, mesh_f, item.world_view[0], item.full_proj[0], image_width=256,
+            image_height=256, rows=rows))
+        with torch.no_grad():
+            bundle, vis, _ = S3._s3_project(net, (state.net_params, state.net_buffers),
+                                            state.splats, bind, mesh_f, item, 0,
+                                            sh_degree=SH_DEGREE)
+        proj = timed("projection", lambda: _project(
+            bundle, item.world_view[0], item.full_proj[0], item.campos[0], width=w, height=h,
+            tanfovx=item.tanfovx[0], tanfovy=item.tanfovy[0], scaling_modifier=1.0,
+            vis_mask=vis, screen_offset=None))
+        pairs = timed("binning", lambda: tiles.bin_pairs(proj, image_width=w, image_height=h))
+        out = timed("composite_fwd kernel", lambda: tiles.composite_tiles_cuda(
+            pairs, image_height=h, image_width=w))
+        cot = cotangents(torch, dev, h, w, 3)
+        timed("composite_bwd kernel", lambda: tiles.composite_tiles_backward_cuda(
+            pairs, out.final_logt, out.last_pair, *cot, image_height=h, image_width=w))
+        img = item.image.clone().requires_grad_(True)
+        timed("SSIM fwd+bwd", lambda: torch.autograd.grad(ssim(img * 0.9, item.image,
+                                                               item.mask), img))
+        timed("Adam (net + splats)", lambda: (
+            tree_adam_step(state.net_params, state.net_params, state.net_adam, 1e-4),
+            G.adam_step(state.splats, state.splats, state.splat_adam, lrs)))
+        for kind, step in steps.items():
+            timed(f"whole step, {kind}", lambda: step(state, bind, mesh_f, item))
+    print(f"s3 device split of one step at {w}x{h}, {run.n_texels} texel splats, "
+          f"{int(vis.sum())} visible, {int(pairs.ranges[-1])} pairs, ms (mean of {reps}, host "
+          f"clock around synchronize):")
+    for k, v in ms.items():
+        print(f"  {k}: {v:.3f}")
+
+    with torch.no_grad():
+        k = tiles.composite_tiles_cuda(pairs, image_height=h, image_width=w)
+        p = tiles.composite_tiles_plain(pairs, image_height=h, image_width=w)
+        live = proj.radii > 0
+        what = f"s3 shape, camera {run.dataset[0]['camera'].image_name} @ {w}x{h}"
+        errs = {"composite_fwd": compare_fwd(
+            torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
+        cot = cotangents(torch, dev, h, w, 5)
+        errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
+        timing = time_both(torch, tiles, pairs, k, cot, h, w, what)
+    return errs, timing
+
+
 def main() -> int:
     import torch
 
@@ -617,39 +802,54 @@ def main() -> int:
                       GG_AUX_ROOT=os.path.join(tmp, "aux"))
     sys.path.insert(0, REPO)
     from gaussian_garments_tpu_torch import pin_full_f32
-    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.ops import cuda as kcuda
 
     pin_full_f32()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    builds = tiles.build_kernels()
-    for name, build in builds.items():
-        tiles._library(name)
-        print(f"{name} built (nvcc {build['seconds']:.2f} s): {build['path']}")
+    builds = kcuda.build_kernels()
+    for source, build in builds.items():
+        kcuda.library(source)
+        print(f"{source} built (nvcc {build['seconds']:.2f} s): {build['path']}")
         print(build["ptxas"])
-    print(f"both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"{len(builds)} kernel sources built and loaded in {time.perf_counter() - t0:.2f} s")
 
     try:
         errs = phase_kernel_checks(torch, dev)
         phase_bench_shape(torch, dev)
+        probe_rows = phase_probes(torch)
         phase_inference(torch, dev, tmp, out_root)
-        launches = phase_s2(torch, dev, data_root, out_root)
-        s2_errs, timing = phase_s2_split(torch, dev, out_root)
+        s2_launches = phase_s2(torch, dev, data_root, out_root)
+        s2_errs, _ = phase_s2_split(torch, dev, out_root)
+        s3_launches = phase_s3(torch, dev, out_root)
+        s3_errs, timing = phase_s3_split(torch, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "gaussian_garments_tpu"))
     check(not bad, f"the port imported {bad}")
 
+    relpath = lambda source: os.path.relpath(kcuda.source_path(source), REPO)
     kernels = []
-    for name in SOURCES:
+    for name in ("composite_fwd", "composite_bwd"):
+        source, replaces = kcuda.KERNELS[name]
         ms, plain_ms, bound_ms, bound_by = timing[name]
-        check(launches[name] > 0, f"{name} was not launched on the s2 path")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": launches[name],
-                        "max_abs_err": max(errs[name], s2_errs[name]), "ms": ms,
+        check(s2_launches[name] > 0, f"{name} was not launched on the s2 path")
+        check(s3_launches[name] > 0, f"{name} was not launched on the s3 path")
+        kernels.append({"name": name, "route": "cuda", "source": relpath(source),
+                        "replaces": replaces, "launches": s3_launches[name],
+                        "max_abs_err": max(errs[name], s2_errs[name], s3_errs[name]), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
+    for r in probe_rows:
+        kernels.append({"name": r["name"], "route": "cuda", "source": r["source"],
+                        "replaces": r["replaces"], "launches": r["launches"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    registered = {r["name"].split("@")[0] for r in probe_rows} | {"composite_fwd", "composite_bwd"}
+    check(registered == set(kcuda.KERNELS),
+          f"kernels not driven: {set(kcuda.KERNELS) - registered}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

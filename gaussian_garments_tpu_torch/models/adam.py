@@ -42,3 +42,31 @@ def tensor_adam_step(p: torch.Tensor, g: torch.Tensor, state: TensorAdam, lr,
     bc1, bc2 = bias_corrections(step, b1, b2)
     new_p, mu, nu = adam_update(p, g, state.mu, state.nu, lr, bc1, bc2, b1, b2, eps)
     return new_p, TensorAdam(step, mu, nu)
+
+
+class TreeAdam(NamedTuple):
+    """Adam state over a dict of tensors (the JAX package's ``TreeAdam``
+    over a pytree): one step counter, first and second moments per key."""
+
+    step: int
+    mu: dict
+    nu: dict
+
+
+def tree_adam_init(params: dict) -> TreeAdam:
+    return TreeAdam(0, {k: torch.zeros_like(v) for k, v in params.items()},
+                    {k: torch.zeros_like(v) for k, v in params.items()})
+
+
+def tree_adam_step(params: dict, grads: dict, state: TreeAdam, lr, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-15):
+    """One Adam step of every tensor of ``params`` at learning rate ``lr``."""
+    step = state.step + 1
+    # moved to the card once, not once per tensor in adam_update
+    dev = next(iter(params.values())).device
+    bc1, bc2 = (x.to(dev) for x in bias_corrections(step, b1, b2))
+    new_p, mu, nu = {}, {}, {}
+    for k, p in params.items():
+        new_p[k], mu[k], nu[k] = adam_update(p, grads[k], state.mu[k], state.nu[k], lr, bc1, bc2,
+                                             b1, b2, eps)
+    return new_p, TreeAdam(step, mu, nu)

@@ -1,10 +1,13 @@
 """UV-texel Gaussians: one splat per texel inside the template's UV islands.
 
-Port of the inference parts of ``gaussian_garments_tpu/models/avatar_gaussian.py``
-(reference ``scene/avatar_gaussian_model.py``), compact layout only: a
-scanline bind map gives each texel its face, each texel stores the
-barycentric coordinates of its centre in that UV triangle, and its anchor and
-world position follow the deforming mesh.
+Port of ``gaussian_garments_tpu/models/avatar_gaussian.py`` (reference
+``scene/avatar_gaussian_model.py``), compact layout only: a scanline bind map
+gives each texel its face, each texel stores the barycentric coordinates of
+its centre in that UV triangle, and its anchor and world position follow the
+deforming mesh. Stage 3 initialises the texel splats from the stage-2
+Template (``init_from_template``) and masks them with the per-texel
+depth-buffer visibility (``get_visible_mask_depth``). The dense texel layout
+(``--dense_texels``) is not ported.
 """
 from __future__ import annotations
 
@@ -102,10 +105,62 @@ def avatar_world_xyz(local_xyz: torch.Tensor, bind: AvatarBinding, frames: MG.Fa
     return MG.rows_rot_apply(rows[:, MG.FR_R], local_xyz) * rows[:, MG.FR_S] + anchor
 
 
+def local_offset(bind: AvatarBinding, frames: MG.FaceFrames, gs_3d: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """World anchor → local face-frame offset (reference get_local_offset)."""
+    if rows is None:
+        rows = MG.gather_frame_rows(frames, bind.binding)
+    return MG.rows_rot_apply_t(rows[:, MG.FR_R], (gs_3d - rows[:, MG.FR_C]) / rows[:, MG.FR_S])
+
+
+def scatter_texture(bind: AvatarBinding, values: torch.Tensor, channels: int) -> torch.Tensor:
+    """(G,C) texel values → (C,res,res) texture (zeros elsewhere)."""
+    res = bind.texture_size
+    flat = values.new_zeros((res * res, channels))
+    flat[bind.flat_idx] = values
+    return flat.reshape(res, res, channels).permute(2, 0, 1)
+
+
 def gather_texture(bind: AvatarBinding, texture: torch.Tensor) -> torch.Tensor:
     """(C,res,res) texture → (G,C) per-texel rows."""
     res = bind.texture_size
     return texture.permute(1, 2, 0).reshape(res * res, -1)[bind.flat_idx]
+
+
+def init_from_template(bind: AvatarBinding, template_v: np.ndarray, template_f: np.ndarray,
+                       world_ply_path: str, local_ply_path: str, max_sh_degree: int,
+                       device=None) -> Tuple[G.GaussianParams, G.GaussianAux]:
+    """Texel splats from the stage-2 Template point clouds (reference
+    init_gaussians :69-138): local xyz starts at zero; features, scales,
+    rotations and opacity come from the Template splat nearest to the texel's
+    anchor in world space. On ``device`` (the card unless given)."""
+    from scipy.spatial import cKDTree
+
+    from gaussian_garments_tpu_torch.utils.io import read_ply
+
+    device = resolve_device(device)
+    dev = bind.binding.device
+    v = torch.as_tensor(np.asarray(template_v, np.float32), device=dev)
+    f = torch.as_tensor(np.asarray(template_f, np.int64), device=dev)
+    gs_3d = barycentric_3d(bind, v, f).cpu().numpy()
+    world = read_ply(world_ply_path)
+    _, nb = cKDTree(np.stack([world["x"], world["y"], world["z"]], axis=1)).query(gs_3d)
+    try:
+        local, _ = G.load_ply(local_ply_path, max_sh_degree, device="cpu")
+    except ValueError:
+        # stage 2 runs at SH degree 0; higher coefficients start at zero, as the
+        # reference swallows the mismatch (avatar_gaussian_model.py:99-110)
+        local, _ = G.load_ply(local_ply_path, 0, device="cpu")
+        r = (max_sh_degree + 1) ** 2 - 1
+        local = local.replace(features_rest=torch.zeros((local.xyz.shape[0], r, 3)))
+    take = torch.as_tensor(nb, dtype=torch.int64)
+    n = len(gs_3d)
+    params = G.GaussianParams(xyz=torch.zeros((n, 3)), **{
+        k: getattr(local, k)[take] for k in G.PARAM_NAMES if k != "xyz"}).to(device)
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    aux = G.GaussianAux(alive=torch.ones((n,), dtype=torch.bool, device=device),
+                        max_radii2d=z(n), xyz_gradient_accum=z(n, 1), denom=z(n, 1))
+    return params, aux
 
 
 def init_empty(bind: AvatarBinding, max_sh_degree: int) -> G.GaussianParams:
@@ -124,3 +179,24 @@ def adapt_params_layout(bind: AvatarBinding, params: G.GaussianParams) -> G.Gaus
         return params
     take = bind.flat_idx.to(params.xyz.device)
     return G.GaussianParams(**{k: getattr(params, k)[take] for k in G.PARAM_NAMES})
+
+
+def get_visible_mask_depth(bind: AvatarBinding, mesh_v: torch.Tensor, mesh_f: torch.Tensor,
+                           viewmatrix: torch.Tensor, projmatrix: torch.Tensor, *,
+                           image_width: int, image_height: int, rel_tol: float = 5e-3,
+                           rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-texel depth-buffer visibility: render the mesh's depth buffer,
+    project each texel's anchor, and call it visible iff its view depth is
+    within ``rel_tol`` of the nearest surface at that pixel (the raster
+    counterpart of the reference's per-texel ray cast,
+    avatar_gaussian_model.py:227-263). (G,) bool."""
+    from gaussian_garments_tpu_torch.ops.mesh_raster import project_mesh, rasterize_mesh
+
+    _, depth_buf = rasterize_mesh(mesh_v, mesh_f, viewmatrix, projmatrix,
+                                  image_width=image_width, image_height=image_height)
+    anchors = barycentric_3d(bind, mesh_v, mesh_f, rows=rows)
+    xy, z = project_mesh(anchors, viewmatrix, projmatrix, image_width, image_height)
+    xi = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, image_width - 1)
+    yi = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, image_height - 1)
+    sampled = depth_buf.reshape(-1)[yi * image_width + xi]
+    return (z > 0.0) & (z <= sampled * (1.0 + rel_tol))

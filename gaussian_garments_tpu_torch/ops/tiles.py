@@ -16,7 +16,7 @@ Port of ``gaussian_garments_tpu/ops/pallas_tiles.py``:
   tensors and ``composite_tiles_plain``, the same math in plain torch, for
   CPU tensors; its backward likewise runs ``csrc/composite_bwd.cu`` or
   ``composite_tiles_backward_plain``. Both kernels are built with nvcc at
-  first use and loaded with ctypes.
+  first use and loaded with ctypes (``ops/cuda.py``).
 
 Tiles are 16 wide × 32 tall, as in the JAX package. The row-exact span culling
 of the JAX package (``_row_spans``) is not ported: it removes only pairs whose
@@ -24,18 +24,11 @@ contribution is exactly zero.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from gaussian_garments_tpu_torch.ops.cuda import check_tensor, launch, route, stream
 from gaussian_garments_tpu_torch.ops.projection import ProjectedGaussians
 from gaussian_garments_tpu_torch.ops.rasterizer_ref import ALPHA_EPS, ALPHA_MAX, T_EPS
 
@@ -281,115 +274,28 @@ def composite_tiles_backward_plain(pairs: TilePairs, final_logt: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernels: build, load, launch
+# the CUDA kernels: launch (build and load in ``ops/cuda.py``)
 # ---------------------------------------------------------------------------
 
-_PKG = Path(__file__).resolve().parent.parent
-KERNEL_SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
-                  "composite_bwd": _PKG / "csrc" / "composite_bwd.cu"}
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_libs = {}
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the compositor kernels are built from "
-                       f"{_PKG / 'csrc'} with the CUDA toolkit at first use")
-
-
-def kernel_library_path(name: str) -> Path:
-    source = KERNEL_SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgg_{name}_{digest.hexdigest()[:16]}.so"
-
-
-def build_kernel(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` into ``build/`` unless a library of the same
-    source and flags is there. Returns {path, seconds, ptxas}."""
-    so = kernel_library_path(name)
-    if so.exists():
-        return {"path": str(so), "seconds": 0.0, "ptxas": "cached"}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCES[name])],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {KERNEL_SOURCES[name]}:\n{res.stderr}")
-    os.replace(tmp, so)
-    return {"path": str(so), "seconds": time.perf_counter() - t0, "ptxas": res.stderr.strip()}
-
-
-def build_kernels() -> dict:
-    """Build every kernel, one nvcc per source, all started together.
-    Returns {name: build_kernel(name)}; raises if any build fails."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        futures = {name: pool.submit(build_kernel, name) for name in KERNEL_SOURCES}
-        return {name: f.result() for name, f in futures.items()}
-
-
-def _library(name: str):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(build_kernel(name)["path"])
-            if name == "composite_fwd":
-                lib.gg_composite_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp,
-                                                 vp, vp]
-                lib.gg_composite_fwd.restype = ci
-            else:
-                lib.gg_composite_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                                 ci, vp, vp]
-                lib.gg_composite_bwd.restype = ci
-            lib.gg_cuda_error_string.argtypes = [ci]
-            lib.gg_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
-
-
-def _check(t: torch.Tensor, name: str, dtype, device, shape=None) -> None:
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {device}, got "
-                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
-
-
-def _check_pairs(pairs: TilePairs) -> torch.device:
+def check_pairs(pairs: TilePairs) -> torch.device:
+    """Raise unless ``pairs`` is what the kernels over the pair table take
+    (this module's and the probes'); returns its card."""
     feats = pairs.feats
     dev = feats.device
     if dev.type != "cuda":
-        raise ValueError(f"the CUDA compositor takes cuda tensors, got {dev}")
-    _check(feats, "feats", torch.float32, dev)
-    _check(pairs.pair_splat, "pair_splat", torch.int32, dev)
-    _check(pairs.ranges, "ranges", torch.int32, dev,
-           (pairs.tiles_x * pairs.tiles_y + 1,))
+        raise ValueError(f"the CUDA kernels take cuda tensors, got {dev}")
+    check_tensor(feats, "feats", torch.float32, dev)
+    check_tensor(pairs.pair_splat, "pair_splat", torch.int32, dev)
+    check_tensor(pairs.ranges, "ranges", torch.int32, dev, (pairs.tiles_x * pairs.tiles_y + 1,))
     if feats.ndim != 2 or feats.shape[1] != FEAT_DIM:
         raise ValueError(f"feats must be (N, {FEAT_DIM}), got {tuple(feats.shape)}")
     return dev
 
 
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: " + lib.gg_cuda_error_string(err).decode())
-
-
 def composite_tiles_cuda(pairs: TilePairs, *, image_height: int,
                          image_width: int) -> Composite:
     """Launch ``csrc/composite_fwd.cu``. Raises if it cannot be built or launched."""
-    dev = _check_pairs(pairs)
-    lib = _library("composite_fwd")
+    dev = check_pairs(pairs)
     h, w = image_height, image_width
     color = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     depth = torch.empty((1, h, w), dtype=torch.float32, device=dev)
@@ -397,13 +303,11 @@ def composite_tiles_cuda(pairs: TilePairs, *, image_height: int,
     final_logt = torch.empty((h, w), dtype=torch.float32, device=dev)
     last_pair = torch.empty((h, w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gg_composite_fwd(
-            pairs.feats.data_ptr(), pairs.pair_splat.data_ptr(), pairs.ranges.data_ptr(),
-            pairs.tiles_x * pairs.tiles_y, pairs.tiles_x, w, h, color.data_ptr(),
-            depth.data_ptr(), alpha.data_ptr(), final_logt.data_ptr(), last_pair.data_ptr(),
-            stream)
-    _raise_on(lib, err, "composite_fwd")
+        launch("composite_fwd", "gg_composite_fwd",
+               pairs.feats.data_ptr(), pairs.pair_splat.data_ptr(), pairs.ranges.data_ptr(),
+               pairs.tiles_x * pairs.tiles_y, pairs.tiles_x, w, h, color.data_ptr(),
+               depth.data_ptr(), alpha.data_ptr(), final_logt.data_ptr(), last_pair.data_ptr(),
+               stream(dev))
     composite_tiles_cuda.launches += 1
     return Composite(color, depth, alpha, final_logt, last_pair)
 
@@ -417,36 +321,25 @@ def composite_tiles_backward_cuda(pairs: TilePairs, final_logt: torch.Tensor,
                                   image_height: int, image_width: int) -> torch.Tensor:
     """Launch ``csrc/composite_bwd.cu``: (N, 12) feature gradients. Raises if
     it cannot be built or launched."""
-    dev = _check_pairs(pairs)
+    dev = check_pairs(pairs)
     h, w = image_height, image_width
-    _check(final_logt, "final_logt", torch.float32, dev, (h, w))
-    _check(last_pair, "last_pair", torch.int32, dev, (h, w))
-    _check(g_color, "g_color", torch.float32, dev, (3, h, w))
-    _check(g_depth, "g_depth", torch.float32, dev, (1, h, w))
-    _check(g_alpha, "g_alpha", torch.float32, dev, (1, h, w))
-    lib = _library("composite_bwd")
+    check_tensor(final_logt, "final_logt", torch.float32, dev, (h, w))
+    check_tensor(last_pair, "last_pair", torch.int32, dev, (h, w))
+    check_tensor(g_color, "g_color", torch.float32, dev, (3, h, w))
+    check_tensor(g_depth, "g_depth", torch.float32, dev, (1, h, w))
+    check_tensor(g_alpha, "g_alpha", torch.float32, dev, (1, h, w))
     d_feats = torch.zeros_like(pairs.feats)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gg_composite_bwd(
-            pairs.feats.data_ptr(), pairs.pair_splat.data_ptr(), pairs.ranges.data_ptr(),
-            final_logt.data_ptr(), last_pair.data_ptr(), g_color.data_ptr(),
-            g_depth.data_ptr(), g_alpha.data_ptr(), pairs.tiles_x * pairs.tiles_y,
-            pairs.tiles_x, w, h, d_feats.data_ptr(), stream)
-    _raise_on(lib, err, "composite_bwd")
+        launch("composite_bwd", "gg_composite_bwd",
+               pairs.feats.data_ptr(), pairs.pair_splat.data_ptr(), pairs.ranges.data_ptr(),
+               final_logt.data_ptr(), last_pair.data_ptr(), g_color.data_ptr(),
+               g_depth.data_ptr(), g_alpha.data_ptr(), pairs.tiles_x * pairs.tiles_y,
+               pairs.tiles_x, w, h, d_feats.data_ptr(), stream(dev))
     composite_tiles_backward_cuda.launches += 1
     return d_feats
 
 
 composite_tiles_backward_cuda.launches = 0
-
-
-def _route(dev: torch.device, cuda_fn, plain_fn):
-    if dev.type == "cuda":
-        return cuda_fn
-    if dev.type == "cpu":
-        return plain_fn
-    raise RuntimeError(f"no compositor for device {dev}")
 
 
 class _Composite(torch.autograd.Function):
@@ -457,7 +350,7 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, pairs, h, w):
         pairs = pairs._replace(feats=feats)
-        fwd = _route(feats.device, composite_tiles_cuda, composite_tiles_plain)
+        fwd = route(feats.device, composite_tiles_cuda, composite_tiles_plain)
         out = fwd(pairs, image_height=h, image_width=w)
         ctx.save_for_backward(feats, pairs.pair_splat, pairs.ranges, out.final_logt,
                               out.last_pair)
@@ -470,7 +363,7 @@ class _Composite(torch.autograd.Function):
         feats, pair_splat, ranges, final_logt, last_pair = ctx.saved_tensors
         tx, ty, h, w = ctx.grid
         pairs = TilePairs(feats.detach(), pair_splat, ranges, None, tx, ty)
-        bwd = _route(feats.device, composite_tiles_backward_cuda,
+        bwd = route(feats.device, composite_tiles_backward_cuda,
                      composite_tiles_backward_plain)
         d_feats = bwd(pairs, final_logt, last_pair, g_color.contiguous(),
                       g_depth.contiguous(), g_alpha.contiguous(), image_height=h,

@@ -1,0 +1,272 @@
+"""Gather probes: is a table held on chip faster than a gather through L2?
+
+Counterparts of the TPU probes ``scripts/profile_pallas_gather.py`` (row 3 of
+the kernel table: a flat gather from a VMEM-resident table),
+``scripts/profile_pallas_gather2.py`` (rows 4A, 4B: ``take_along_axis`` on
+axis 0 and 1; 4C: the flat gather of row 3 in blocks of 2,048) and
+``scripts/profile_pallas_gather3.py`` (row 5: the flat gather at a 163,840
+entry table in blocks of 1,280), at their shapes and with their seeds.
+
+A 606–655 KB table does not fit one block's 227 KB of shared memory, so the
+flat gather runs as two kernels (``csrc/probe_gather.cu``): ``flat_l2``
+reads the table through L2; ``flat_cluster`` stages it across a cluster of
+4 blocks' shared memory and gathers through distributed shared memory, the
+counterpart of the VMEM-resident table. Its time is reported with the
+staging and without it.
+
+    python -m gaussian_garments_tpu_torch.probes.gather [--device cuda] [--reps 20] \
+        [--rows 3 4C 5 4A 4B]
+
+The plain versions are ``table.reshape(-1)[idx]`` and ``torch.gather``; the
+library yardsticks, timed beside the kernels and used nowhere in the port,
+are ``torch.take`` and ``torch.gather``.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from gaussian_garments_tpu_torch.ops.cuda import check_tensor, launch, route, stream
+from gaussian_garments_tpu_torch.probes.common import Entry, cuda_ms, max_abs, report
+
+CLUSTER = 4
+N_CLUSTERS = 33            # 132 SMs / 4
+SMEM_BLOCK_BYTES = 232_448
+
+# row -> (table rows, table lanes, indices, indices per block, TPU kernel)
+FLAT_ROWS = {
+    "3": (1184, 128, 2_097_152, 8192, "scripts/profile_pallas_gather.py:42"),
+    "4C": (1184, 128, 2_097_152, 2048, "scripts/profile_pallas_gather2.py:98"),
+    "5": (1280, 128, 2_097_920, 1280, "scripts/profile_pallas_gather3.py:54"),
+}
+# row -> (axis, table shape, index shape, TPU kernel)
+AXIS_ROWS = {
+    "4A": (0, (1184, 128), (512, 128), "scripts/profile_pallas_gather2.py:46"),
+    "4B": (1, (8, 18_944), (8, 1024), "scripts/profile_pallas_gather2.py:72"),
+}
+ROWS = (*FLAT_ROWS, *AXIS_ROWS)
+
+
+def _check_flat(table: torch.Tensor, idx: torch.Tensor) -> torch.device:
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"the gather kernels take cuda tensors, got {dev}")
+    check_tensor(table, "table", torch.float32, dev)
+    check_tensor(idx, "idx", torch.int32, dev)
+    return dev
+
+
+def gather_flat_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[p] = table.flat[idx[p]]."""
+    return table.reshape(-1)[idx.reshape(-1).long()]
+
+
+def gather_flat_l2_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Launch ``flat_l2``: one thread per index, the table read through L2."""
+    dev = _check_flat(table, idx)
+    out = torch.empty(idx.numel(), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch("probe_gather", "gg_gather_flat_l2", table.data_ptr(), idx.data_ptr(),
+               out.data_ptr(), idx.numel(), stream(dev))
+    gather_flat_l2_cuda.launches += 1
+    return out
+
+
+gather_flat_l2_cuda.launches = 0
+
+
+def gather_flat_cluster_cuda(table: torch.Tensor, idx: torch.Tensor, *, blk: int,
+                             stage: bool = True) -> torch.Tensor:
+    """Launch ``flat_cluster``: 33 clusters of 4 blocks each hold the table in
+    their shared memory and walk the index blocks of ``blk`` indices.
+    ``stage=False`` skips the staging (the output is then undefined): the
+    gathers alone, for timing."""
+    dev = _check_flat(table, idx)
+    slice_bytes = -(-table.numel() // CLUSTER) * 4
+    if slice_bytes > SMEM_BLOCK_BYTES:
+        raise ValueError(f"a {table.numel()}-entry table needs {slice_bytes} B of shared "
+                         f"memory a block; a block has {SMEM_BLOCK_BYTES}")
+    out = torch.empty(idx.numel(), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch("probe_gather", "gg_gather_flat_cluster", table.data_ptr(), idx.data_ptr(),
+               out.data_ptr(), idx.numel(), table.numel(), N_CLUSTERS, blk, 0 if stage else 1,
+               stream(dev))
+    gather_flat_cluster_cuda.launches += 1
+    return out
+
+
+gather_flat_cluster_cuda.launches = 0
+
+
+def gather_axis_plain(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """``take_along_axis(tab, idx, axis)`` for 2-D tensors."""
+    return torch.gather(tab, axis, idx.long())
+
+
+def _gather_axis_cuda(tab, idx, axis):
+    dev = tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"the gather kernels take cuda tensors, got {dev}")
+    check_tensor(tab, "tab", torch.float32, dev)
+    check_tensor(idx, "idx", torch.int32, dev)
+    if tab.ndim != 2 or idx.ndim != 2:
+        raise ValueError("the axis gathers take 2-D tensors")
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        if axis == 0:
+            if idx.shape[1] != tab.shape[1]:
+                raise ValueError(f"axis 0: idx {tuple(idx.shape)} and tab {tuple(tab.shape)}")
+            launch("probe_gather", "gg_gather_axis0", tab.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), idx.shape[0], idx.shape[1], stream(dev))
+        else:
+            if idx.shape[0] != tab.shape[0]:
+                raise ValueError(f"axis 1: idx {tuple(idx.shape)} and tab {tuple(tab.shape)}")
+            launch("probe_gather", "gg_gather_axis1", tab.data_ptr(), idx.data_ptr(),
+                   out.data_ptr(), tab.shape[0], tab.shape[1], idx.shape[1], stream(dev))
+    return out
+
+
+def gather_axis0_cuda(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Launch ``axis0``: out[e, j] = tab[idx[e, j], j]."""
+    out = _gather_axis_cuda(tab, idx, 0)
+    gather_axis0_cuda.launches += 1
+    return out
+
+
+def gather_axis1_cuda(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Launch ``axis1``: out[r, k] = tab[r, idx[r, k]]."""
+    out = _gather_axis_cuda(tab, idx, 1)
+    gather_axis1_cuda.launches += 1
+    return out
+
+
+gather_axis0_cuda.launches = 0
+gather_axis1_cuda.launches = 0
+
+# kernel name -> the wrapper that counts its launches
+WRAPPERS = {"gather_flat_l2": gather_flat_l2_cuda,
+            "gather_flat_cluster": gather_flat_cluster_cuda,
+            "gather_axis0": gather_axis0_cuda, "gather_axis1": gather_axis1_cuda}
+
+
+def gather_flat(table: torch.Tensor, idx: torch.Tensor, *, variant: str = "l2",
+                blk: int = 8192) -> torch.Tensor:
+    """The flat gather: ``flat_l2`` or ``flat_cluster`` for CUDA tensors, the
+    plain version for CPU tensors."""
+    if variant == "l2":
+        cuda = gather_flat_l2_cuda
+    elif variant == "cluster":
+        cuda = lambda t, i: gather_flat_cluster_cuda(t, i, blk=blk)
+    else:
+        raise ValueError(f"variant must be 'l2' or 'cluster', got {variant!r}")
+    return route(table.device, cuda, gather_flat_plain)(table, idx)
+
+
+def gather_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """``take_along_axis`` on axis 0 or 1: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    cuda = {0: gather_axis0_cuda, 1: gather_axis1_cuda}[axis]
+    return route(tab.device, cuda, lambda t, i: gather_axis_plain(t, i, axis))(tab, idx)
+
+
+def make_inputs(device) -> dict:
+    """Every row's (table, indices) as the JAX scripts seed them, on ``device``."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    out = {}
+    rng = np.random.RandomState(0)                          # profile_pallas_gather.py
+    n = 1184 * 128
+    out["3"] = (t(rng.randn(n).astype(np.float32).reshape(1184, 128)),
+                t(rng.randint(0, n, 2_097_152).astype(np.int32)))
+    rng = np.random.RandomState(0)                          # profile_pallas_gather2.py
+    out["4A"] = (t(rng.randn(1184, 128).astype(np.float32)),
+                 t(rng.randint(0, 1184, (512, 128)).astype(np.int32)))
+    out["4B"] = (t(rng.randn(8, 18_944).astype(np.float32)),
+                 t(rng.randint(0, 18_944, (8, 1024)).astype(np.int32)))
+    out["4C"] = (t(rng.randn(1184, 128).astype(np.float32)),
+                 t(rng.randint(0, n, 2_097_152).astype(np.int32)))
+    rng = np.random.RandomState(0)                          # profile_pallas_gather3.py
+    out["5"] = (t(rng.randn(1280, 128).astype(np.float32)),
+                t(rng.randint(0, 1280 * 128, 2_097_920).astype(np.int32)))
+    return out
+
+
+def _exact(got, want):
+    err = max_abs(got, want)
+    return err, bool(torch.equal(got, want))
+
+
+def entries(device, inputs: Optional[dict] = None, rows: Sequence[str] = ROWS) -> List[Entry]:
+    """Every gather kernel at each of ``rows`` of the TPU scripts' table."""
+    inputs = inputs or make_inputs(device)
+    out = []
+    for row, (n_rows, lanes, n, blk, replaces) in FLAT_ROWS.items():
+        if row not in rows:
+            continue
+        table, idx = inputs[row]
+        idx64 = idx.long()
+        nbytes = table.numel() * 4 + idx.numel() * 8
+        shape = f"table ({n_rows}, {lanes}) f32, {n} int32 indices in blocks of {blk}"
+        common = dict(row=row, replaces=replaces,
+                      plain=lambda t=table, i=idx: gather_flat_plain(t, i),
+                      compare=_exact, tolerance="exact", nbytes=nbytes,
+                      library=lambda t=table, i=idx64: torch.take(t, i), shape=shape)
+        out.append(Entry(name="gather_flat_l2", wrapper=gather_flat_l2_cuda,
+                         run=lambda t=table, i=idx: gather_flat(t, i, variant="l2"), **common))
+        out.append(Entry(name="gather_flat_cluster", wrapper=gather_flat_cluster_cuda,
+                         run=lambda t=table, i=idx, b=blk: gather_flat(t, i, variant="cluster",
+                                                                       blk=b), **common))
+    for row, (axis, tshape, ishape, replaces) in AXIS_ROWS.items():
+        if row not in rows:
+            continue
+        tab, idx = inputs[row]
+        idx64 = idx.long()
+        out.append(Entry(
+            name=f"gather_axis{axis}", row=row, replaces=replaces,
+            wrapper=gather_axis0_cuda if axis == 0 else gather_axis1_cuda,
+            run=lambda t=tab, i=idx, a=axis: gather_axis(t, i, a),
+            plain=lambda t=tab, i=idx, a=axis: gather_axis_plain(t, i, a),
+            compare=_exact, tolerance="exact", nbytes=tab.numel() * 4 + idx.numel() * 8,
+            library=lambda t=tab, i=idx64, a=axis: torch.gather(t, a, i),
+            shape=f"take_along_axis axis {axis}: tab {tshape} f32, idx {ishape} int32"))
+    return out
+
+
+def unstaged_ms(inputs: dict, row: str, reps: int = 20) -> float:
+    """ms of ``flat_cluster``'s gathers at ``row`` without the staging."""
+    table, idx = inputs[row]
+    return cuda_ms(lambda: gather_flat_cluster_cuda(table, idx, blk=FLAT_ROWS[row][3],
+                                                    stage=False), reps)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda", help="torch device; 'cuda' raises without a GPU")
+    p.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
+    p.add_argument("--rows", nargs="+", choices=ROWS, default=list(ROWS),
+                   help="rows of the TPU scripts' table to run")
+    return p.parse_args(sys.argv[1:] if argv is None else list(argv))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> list:
+    from gaussian_garments_tpu_torch import resolve_device
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    inputs = make_inputs(device)
+    es = entries(device, inputs, args.rows)
+
+    def extra(e, row):
+        if e.name == "gather_flat_cluster" and device.type == "cuda":
+            row["ms_unstaged"] = unstaged_ms(inputs, e.row, args.reps)
+            print(f"{'':>6} {'':<20} without the staging: {row['ms_unstaged']:.4f} ms",
+                  flush=True)
+
+    return report(es, device, args.reps, extra)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,210 @@
+"""Stage-3 appearance trainer: one optimisation step and the eval render
+(port of ``gaussian_garments_tpu/training/s3.py``; reference the inline loop
+of ``s3_appearance.py:105-204``).
+
+Per (sequence, frame, camera) item of a batch: pose the mesh → AvatarNet
+predicts per-texel Δxyz and ΔSH from the baked AO and normal textures → the
+texel splats go through ``renderer.render_batch`` (projection, binning, the
+CUDA compositor forward and backward) on a zero background, masked by the
+per-texel visibility, and the item's background is composited as
+``img + bg·(1 − α)`` outside the kernel → masked L1 and SSIM plus the xyz,
+scale and opacity hinges → ``torch.autograd.grad`` → Adam over the net and,
+after pre-training, the splats.
+
+The net is called functionally (``torch.func.functional_call``) on the
+state's parameter and buffer dicts, so the state holds the weights and the
+module only the computation; the dict keys are the Flax paths joined with
+dots (``training/checkpoints.py`` converts both ways).
+
+Not ported: the JAX package's ``make_s3_pair_counter`` and ``pair_budget``
+probing (the port allocates pairs exactly, so there is no budget to size),
+the data-parallel ``axis_name`` and bf16 UNet activations.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+
+from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
+from gaussian_garments_tpu_torch.models import gaussian as G
+from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
+from gaussian_garments_tpu_torch.models.adam import TreeAdam, tree_adam_init, tree_adam_step
+from gaussian_garments_tpu_torch.models.avatar_net import apply_shadow
+from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
+                                                  render_batch)
+from gaussian_garments_tpu_torch.training.s2 import _safe_norm
+from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
+
+
+@dataclasses.dataclass
+class S3Item:
+    """A batch of (sequence, frame, camera) items (leading axis = batch)."""
+
+    image: torch.Tensor          # (B,3,H,W)
+    mask: torch.Tensor           # (B,1,H,W)
+    bg: torch.Tensor             # (B,3)
+    mesh_v: torch.Tensor         # (B,V,3)
+    ambient: torch.Tensor        # (B,1,res,res)
+    normal: torch.Tensor         # (B,3,res,res)
+    world_view: torch.Tensor     # (B,4,4)
+    full_proj: torch.Tensor      # (B,4,4)
+    campos: torch.Tensor         # (B,3)
+    tanfovx: Tuple[float, ...]
+    tanfovy: Tuple[float, ...]
+    # per-texel visibility (B,G), a constant of the item that
+    # s3_appearance caches; None computes it in the step
+    vis: Optional[torch.Tensor] = None
+    width: int = 0
+    height: int = 0
+
+
+@dataclasses.dataclass
+class S3State:
+    net_params: Dict[str, torch.Tensor]
+    net_buffers: Dict[str, torch.Tensor]
+    splats: G.GaussianParams
+    net_adam: TreeAdam
+    splat_adam: G.AdamState
+    iteration: int = 0
+
+    def replace(self, **kw) -> "S3State":
+        return dataclasses.replace(self, **kw)
+
+
+def init_state(net: torch.nn.Module, splats: G.GaussianParams) -> S3State:
+    """A fresh state from the net's current weights and the texel splats."""
+    params = {k: v.detach().clone() for k, v in net.named_parameters()}
+    buffers = {k: v.detach().clone() for k, v in net.named_buffers()}
+    return S3State(net_params=params, net_buffers=buffers, splats=splats,
+                   net_adam=tree_adam_init(params), splat_adam=G.adam_init(splats))
+
+
+def splat_lrs(args) -> Dict[str, float]:
+    """Reference AvatarNet.training_setup learning rates (avatar_net.py:40-49)."""
+    return {"xyz": args.position_lr_init * 2.5, "features_dc": args.feature_lr,
+            "features_rest": args.feature_lr / 20.0, "scaling": args.scaling_lr,
+            "rotation": args.rotation_lr, "opacity": args.opacity_lr}
+
+
+def _s3_project(net, net_vars, splats: G.GaussianParams, bind: AG.AvatarBinding,
+                mesh_f: torch.Tensor, item: S3Item, b: int, *, sh_degree: int,
+                vis_raster_hw=(256, 256)):
+    """Item ``b``: net → shadow textures → world-space texel splats. Returns
+    (bundle, visibility (G,), local_xyz (G,3))."""
+    mesh_v = item.mesh_v[b]
+    frames = MG.compute_face_frames(mesh_v, mesh_f)
+    rows = MG.gather_frame_rows(frames, bind.binding, mesh_v, mesh_f)
+    shadow_tex = functional_call(net, net_vars, (
+        item.ambient[b], item.normal[b], item.world_view[b], item.campos[b], bind, mesh_v,
+        mesh_f, frames), {"rows": rows})
+    local_xyz, shs = apply_shadow(bind, splats, shadow_tex, sh_degree)
+    anchor = AG.barycentric_3d(bind, mesh_v, mesh_f, rows=rows)
+    bundle = SplatBundle(
+        means3d=AG.avatar_world_xyz(local_xyz, bind, frames, anchor, rows=rows),
+        opacity=G.get_opacity(splats),
+        scales=MG.world_scaling(splats, bind.binding, frames, rows=rows),
+        rotations=MG.world_rotation(splats, bind.binding, frames, rows=rows),
+        shs=shs, active_sh_degree=sh_degree)
+    if item.vis is not None:
+        vis = item.vis[b]
+    else:
+        with torch.no_grad():
+            vis = AG.get_visible_mask_depth(
+                bind, mesh_v, mesh_f, item.world_view[b], item.full_proj[b],
+                image_width=vis_raster_hw[1], image_height=vis_raster_hw[0], rows=rows)
+    return bundle, vis, local_xyz
+
+
+def _s3_forward_batch(net, net_vars, splats, bind, mesh_f, item: S3Item, *, sh_degree: int,
+                      raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256)):
+    """Every item rendered on a zero background, its own background blended
+    as ``img + bg·(1 − α)``. Returns (rendered (B,3,H,W), local_xyz (B,G,3))."""
+    rendered, local = [], []
+    zero_bg = torch.zeros(3, device=item.image.device)
+    for b in range(item.image.shape[0]):
+        bundle, vis, local_xyz = _s3_project(net, net_vars, splats, bind, mesh_f, item, b,
+                                             sh_degree=sh_degree, vis_raster_hw=vis_raster_hw)
+        cams = BatchedCameras(world_view=item.world_view[b:b + 1],
+                              full_proj=item.full_proj[b:b + 1], campos=item.campos[b:b + 1],
+                              tanfovx=(item.tanfovx[b],), tanfovy=(item.tanfovy[b],),
+                              width=item.width, height=item.height)
+        out = render_batch(cams, bundle, zero_bg, vis_mask=vis, config=raster_cfg)
+        rendered.append(out["render"][0] + item.bg[b][:, None, None] * (1.0 - out["alpha"][0]))
+        local.append(local_xyz)
+    return torch.stack(rendered), torch.stack(local)
+
+
+def _s3_losses(net, net_params, net_buffers, splats, bind, mesh_f, item: S3Item, args, *,
+               sh_degree: int, raster_cfg: RasterConfig = RasterConfig(),
+               vis_raster_hw=(256, 256)):
+    """(total, loss dict) of one batch (``training/s3.py:_s3_losses``)."""
+    rendered, local_xyz = _s3_forward_batch(
+        net, (net_params, net_buffers), splats, bind, mesh_f, item, sh_degree=sh_degree,
+        raster_cfg=raster_cfg, vis_raster_hw=vis_raster_hw)
+    mask = item.mask if args.only_foreground_loss else None
+    loss: Dict[str, torch.Tensor] = {
+        "img": l1_loss(rendered, item.image, mask) * (1.0 - args.lambda_dssim),
+        # the reference's quirk, kept: 1 - ssim·λ, not (1 - ssim)·λ
+        "ssim": 1.0 - ssim(rendered, item.image, mask) * args.lambda_dssim,
+        # hinges (s3_appearance.py:134-137): local xyz per item, scale and
+        # opacity over the splats
+        "xyz": torch.relu(_safe_norm(local_xyz, -1) - args.threshold_xyz).mean()
+        * args.lambda_xyz,
+        "scale": _safe_norm(torch.relu(torch.exp(splats.scaling) - args.threshold_scale),
+                            1).mean() * args.lambda_scale,
+        "opacity": torch.relu(args.threshold_opacity - G.get_opacity(splats)).mean()
+        * args.lambda_opacity,
+    }
+    return sum(loss.values()), loss
+
+
+def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
+                 raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256),
+                 train_gaussians: bool = True):
+    """``step(state, bind, mesh_f, item) -> (state, loss_dict)``. With
+    ``train_gaussians=False`` (epoch-1 pre-training, s3_appearance.py:110-113)
+    only the net is updated and the splats' Adam state does not step."""
+
+    def step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+        params = {k: v.detach().requires_grad_(True) for k, v in state.net_params.items()}
+        splats = G.GaussianParams(**{k: getattr(state.splats, k).detach().requires_grad_(
+            train_gaussians) for k in G.PARAM_NAMES})
+        total, loss = _s3_losses(net, params, state.net_buffers, splats, bind, mesh_f, item,
+                                 args, sh_degree=sh_degree, raster_cfg=raster_cfg,
+                                 vis_raster_hw=vis_raster_hw)
+        leaves = list(params.values())
+        if train_gaussians:
+            leaves += [getattr(splats, k) for k in G.PARAM_NAMES]
+        grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+        with torch.no_grad():
+            g_net = dict(zip(params, grads[:len(params)]))
+            new_net, net_adam = tree_adam_step(state.net_params, g_net, state.net_adam,
+                                               args.lr_init)
+            new_state = state.replace(net_params=new_net, net_adam=net_adam,
+                                      iteration=state.iteration + 1)
+            if train_gaussians:
+                g_spl = G.GaussianParams(**dict(zip(G.PARAM_NAMES, grads[len(params):])))
+                new_spl, spl_adam = G.adam_step(state.splats, g_spl, state.splat_adam,
+                                                splat_lrs(args))
+                new_state = new_state.replace(splats=new_spl, splat_adam=spl_adam)
+        return new_state, {k: v.detach() for k, v in loss.items()}
+
+    return step
+
+
+def make_s3_eval(net: torch.nn.Module, *, sh_degree: int,
+                 raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256)):
+    """``eval(state, bind, mesh_f, item) -> (B,3,H,W)`` renders: the forward
+    without losses or optimiser, for PSNR/SSIM on the llffhold split."""
+
+    @torch.no_grad()
+    def eval_fn(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+        rendered, _ = _s3_forward_batch(
+            net, (state.net_params, state.net_buffers), state.splats, bind, mesh_f, item,
+            sh_degree=sh_degree, raster_cfg=raster_cfg, vis_raster_hw=vis_raster_hw)
+        return rendered
+
+    return eval_fn

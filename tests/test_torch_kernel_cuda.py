@@ -178,3 +178,36 @@ def test_backward_kernel_matches_oracle_autograd(dev):
     for a, b in zip(*grads):
         scale = float(b.abs().max())
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels (``csrc/probe_gather.cu``, ``csrc/probe_composite.cu``),
+# each against its plain version with the tolerance its entry states
+# ---------------------------------------------------------------------------
+
+def _held(entry):
+    from gaussian_garments_tpu_torch.probes.common import check
+
+    before = entry.wrapper.launches
+    err, ok = check(entry)
+    assert ok, (entry.name, entry.row, err, entry.tolerance)
+    assert entry.wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("row", ["3", "4C", "5", "4A", "4B"])
+def test_gather_probe_kernels_match_plain(dev, row):
+    from gaussian_garments_tpu_torch.probes import gather
+
+    for e in gather.entries(dev, rows=(row,)):
+        _held(e)
+
+
+def test_composite_probe_kernels_match_plain(dev):
+    from gaussian_garments_tpu_torch.probes import composite_null, grid_overhead
+    from gaussian_garments_tpu_torch.probes.worklist import build_worklist
+
+    pairs = tiles.bin_pairs(_proj(dev, 20000), image_width=W, image_height=H)
+    for e in composite_null.entries(pairs, H, W):
+        _held(e)
+    for e in grid_overhead.entries(pairs, build_worklist(pairs.ranges)):
+        _held(e)
