@@ -13,8 +13,15 @@ plain version):
    scenes at 256² (one whose wide splats hit the 6-tile clip), and against
    the exact oracle where nothing is clipped; ``composite_bwd`` against its
    plain version on the same scenes and on one saturated tile, and against
-   torch autograd through the oracle at opacity ≤ 0.35;
-4. both kernels at ``bench.py``'s shape (150K splats, 1920×1080), timed;
+   torch autograd through the oracle at opacity ≤ 0.35; both kernels against
+   their plain versions on a scene aimed at the culls (``make_cull_scene``:
+   α contours past 3σ, centres on warp corners, bad conics);
+4. both kernels at ``bench.py``'s shape (150K splats, 1920×1080), timed,
+   beside the pairs of the plain rect
+   and of the row spans and the bound: bytes, and one special-function
+   evaluation per pixel-pair term that the composite sums (the same count
+   for the backward), which does not depend on the binning; the walked-pair
+   count (every pair a pixel walks, which does) is printed beside it;
 5. the probes, through their entry points ``python -m
    gaussian_garments_tpu_torch.probes.{gather,composite_null,grid_overhead}``:
    the gather kernels at every row of the TPU scripts' table (one run per
@@ -33,7 +40,7 @@ plain version):
    a template run then a sequence run, with the artifacts, the losses, the
    densification and the kernels' launch counts checked; then the device split
    of one iteration and both kernels against their plain versions at that
-   shape, timed;
+   shape, timed as in phase 4;
 8. the stage-3 slice at full width on phase 7's output root through
    ``gaussian_garments_tpu_torch.s3_appearance.main``: texture 512 (262,144
    texel splats), SH degree 3, the StyleUNet at full width, 940×1280, one item
@@ -45,7 +52,7 @@ plain version):
    load back through the port, the losses must be finite, the img loss must
    fall, and both compositor kernels must launch; then the device split of one
    full step and both kernels against their plain versions at that shape,
-   timed;
+   timed as in phase 4;
 9. the kernel summary line, the card line and the result line.
 
 Iteration counts of phases 7 and 8 are cuts of the production schedule.
@@ -133,11 +140,68 @@ def cotangents(torch, dev, h, w, seed):
     return g[:3].contiguous(), g[3:4].contiguous(), g[4:5].contiguous()
 
 
-def work(torch, pairs, out, h, w):
-    """Bytes each kernel must move and the pixel-pair evaluations this run's
-    data needs. Forward: a pixel evaluates its tile's pairs until it saturates
-    (T < 1e-4 after its last contributing pair) or the range ends. Backward: a
-    pixel walks from its last contributing pair back to its tile's start."""
+def summed_terms(torch, pairs, out):
+    """The pixel-pair terms that the composite sums, which the backward walks
+    back: at each pixel, the pairs up to its last contributing one that pass
+    the gates (power <= 0, alpha >= 1/255). They do not depend on the
+    binning. A loop over the per-tile slot k, tiles in order of decreasing
+    walk, vectorised over (tiles x 512 pixels)."""
+    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.ops.rasterizer_ref import ALPHA_EPS, ALPHA_MAX
+
+    tx, ty = pairs.tiles_x, pairs.tiles_y
+    last = tiles._tile_pixels(out.last_pair.long(), tx, ty, -1)
+    starts = pairs.ranges[:-1].long()
+    walk = torch.clamp(last.max(dim=1).values - starts + 1, min=0)
+    order = torch.argsort(walk, descending=True, stable=True)
+    walk_host = walk[order].tolist()
+    starts, last = starts[order], last[order]
+    p = torch.arange(tiles.PIX, device=last.device)
+    px = ((order % tx)[:, None] * tiles.TILE_W + (p % tiles.TILE_W)[None, :]).float()
+    py = ((order // tx)[:, None] * tiles.TILE_H + (p // tiles.TILE_W)[None, :]).float()
+    total, m = torch.zeros((), dtype=torch.int64, device=last.device), len(walk_host)
+    for k in range(walk_host[0] if walk_host else 0):
+        while walk_host[m - 1] <= k:
+            m -= 1
+        pid = starts[:m] + k
+        f = pairs.feats[pairs.pair_splat[pid].long()]
+        col = lambda i: f[:, i:i + 1]
+        dx, dy = col(0) - px[:m], col(1) - py[:m]
+        power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
+        al = torch.clamp(col(5) * torch.exp(power), max=ALPHA_MAX)
+        total += ((pid[:, None] <= last[:m]) & (power <= 0.0) & (al >= ALPHA_EPS)).sum()
+    return int(total)
+
+
+def warp_lane_evals(torch, proj, pairs):
+    """Lane evaluations that the kernels' per-warp walk leaves, before any
+    early stop: 32 for each (pair, warp of its tile whose pixels the pair's
+    warp box reaches), as ``csrc/splat_tile.cuh::warp_mask`` decides it (its
+    box from the torch twin ``warp_extents``); 16 warps for a bad conic."""
+    from gaussian_garments_tpu_torch.ops import tiles
+
+    counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device), counts)
+    splat = pairs.pair_splat.long()
+    box = tiles.warp_extents(tiles.ellipse(proj))[splat]
+    f = pairs.feats[splat]
+    mx, my, ex, ey = f[:, 0:1], f[:, 1:2], box[:, 0:1], box[:, 1:2]
+    x0 = ((tile % pairs.tiles_x) * tiles.TILE_W)[:, None] + 8 * torch.arange(2, device=f.device)
+    y0 = ((tile // pairs.tiles_x) * tiles.TILE_H)[:, None] + 4 * torch.arange(8, device=f.device)
+    cols = ((mx - ex <= (x0 + 7).float()) & (mx + ex >= x0.float())).sum(1)
+    rows = ((my - ey <= (y0 + 3).float()) & (my + ey >= y0.float())).sum(1)
+    bad = ~((ex[:, 0] >= 0) & (ey[:, 0] >= 0))
+    return 32 * int(torch.where(bad, 16, cols * rows).sum())
+
+
+def work(torch, proj, pairs, out, h, w):
+    """Bytes each kernel must move and the special-function evaluations this
+    run's data needs: one per pixel-pair term that the composite sums
+    (``summed_terms``), the same set for the backward. Also the walked-pair
+    counts, which depend on the binning (forward: every pair of the tile at every
+    pixel until it saturates or the range ends; backward: every pair from a
+    pixel's last contributing one back to its tile's start), the pairs of
+    the plain rect and of the row spans, and what the warp cull leaves."""
     import math
 
     from gaussian_garments_tpu_torch.ops import tiles
@@ -149,24 +213,31 @@ def work(torch, pairs, out, h, w):
     last = tiled(out.last_pair.long(), -1)
     logt = tiled(out.final_logt, 0.0)
     inside = tiled(torch.ones_like(out.final_logt), 0.0) > 0
-    walked = torch.where(last >= 0, last - starts[:, None] + 1, torch.zeros_like(last))
+    walk = torch.where(last >= 0, last - starts[:, None] + 1, torch.zeros_like(last))
     saturated = logt < math.log(T_EPS)
-    fwd_evals = torch.where(saturated, walked, counts[:, None].expand_as(walked))
-    fwd_evals = int(torch.where(inside, fwd_evals, torch.zeros_like(fwd_evals)).sum())
-    bwd_evals = int(walked.sum())
+    fwd_walk = torch.where(saturated, walk, counts[:, None].expand_as(walk))
+    x0, y0, x1, y1, alive = tiles.tile_rects(proj, tiles_x=pairs.tiles_x, tiles_y=pairs.tiles_y)
+    side = 6
+    rect = torch.where(alive, (x1 - x0).clamp(0, side) * (y1 - y0).clamp(0, side), 0)
+    terms = summed_terms(torch, pairs, out)
     n, p, t = pairs.feats.shape[0], int(pairs.ranges[-1]), pairs.ranges.numel()
     hw = h * w
     fwd_bytes = n * 48 + p * 4 + t * 4 + hw * 4 * 7
     bwd_bytes = n * 48 + p * 4 + t * 4 + hw * 4 * 7 + n * 48
     bound = lambda b, e: max(b / HBM_BYTES_S, e / SFU_OPS_S) * 1e3
     by = lambda b, e: "bytes" if b / HBM_BYTES_S >= e / SFU_OPS_S else "operations"
-    return {"composite_fwd": (bound(fwd_bytes, fwd_evals), by(fwd_bytes, fwd_evals),
-                              fwd_bytes, fwd_evals),
-            "composite_bwd": (bound(bwd_bytes, bwd_evals), by(bwd_bytes, bwd_evals),
-                              bwd_bytes, bwd_evals)}
+    walked = {"composite_fwd": (fwd_bytes, int(torch.where(inside, fwd_walk, 0).sum())),
+              "composite_bwd": (bwd_bytes, int(walk.sum()))}
+    return {"composite_fwd": (bound(fwd_bytes, terms), by(fwd_bytes, terms), fwd_bytes, terms),
+            "composite_bwd": (bound(bwd_bytes, terms), by(bwd_bytes, terms), bwd_bytes, terms),
+            "walked_evals": {k: e for k, (_, e) in walked.items()},
+            "walked_bound_ms": {k: bound(b, e) for k, (b, e) in walked.items()},
+            "rect_pairs": int(rect.sum()), "pairs": p, "warp_evals": warp_lane_evals(torch, proj, pairs)}
 
 
-def time_both(torch, tiles, pairs, out, cot, h, w, what):
+def time_both(torch, tiles, proj, pairs, out, cot, h, w, what):
+    """Both kernels and their plain versions, timed, beside their bounds and
+    the pair counts."""
     from gaussian_garments_tpu_torch.probes.common import cuda_ms
 
     kw = dict(image_height=h, image_width=w)
@@ -178,22 +249,25 @@ def time_both(torch, tiles, pairs, out, cot, h, w, what):
             cuda_ms(lambda: tiles.composite_tiles_backward_cuda(*args, **kw), 20),
             cuda_ms(lambda: tiles.composite_tiles_backward_plain(*args, **kw), 1)),
     }
-    bounds = work(torch, pairs, out, h, w)
+    wk = work(torch, proj, pairs, out, h, w)
     counts = pairs.ranges[1:] - pairs.ranges[:-1]
-    print(f"{what}: {pairs.feats.shape[0]} splats, {int(pairs.ranges[-1])} pairs, deepest tile "
-          f"{int(counts.max())} pairs, {counts.numel()} tiles")
+    print(f"{what}: {pairs.feats.shape[0]} splats; pairs: {wk['rect_pairs']} in the plain rect, "
+          f"{wk['pairs']} after the row-span cull ({wk['pairs'] / max(wk['rect_pairs'], 1):.4f}); "
+          f"deepest tile {int(counts.max())} pairs, {counts.numel()} tiles; "
+          f"{wk['composite_fwd'][3]} pixel-pair terms summed, {wk['warp_evals']} lane "
+          f"evaluations left by the warp cull before early stops ({512 * wk['pairs']} without it)")
     for name, (ms, plain) in res.items():
-        b, by, nbytes, evals = bounds[name]
+        b, by, nbytes, terms = wk[name]
         print(f"  {name}: kernel {ms:.4f} ms (CUDA events, mean of 20), plain {plain:.2f} ms "
-              f"(mean of 1), bound {b:.4f} ms by {by} ({nbytes} B, {evals} pixel-pair "
-              f"evaluations)")
-    return {name: (ms, plain, bounds[name][0], bounds[name][1])
-            for name, (ms, plain) in res.items()}
+              f"(mean of 1), bound {b:.4f} ms by {by} ({nbytes} B, {terms} terms); walked-pair "
+              f"count {wk['walked_evals'][name]} pixel-pair evaluations, bound "
+              f"{wk['walked_bound_ms'][name]:.4f} ms")
+    return {name: (ms, plain, wk[name][0], wk[name][1]) for name, (ms, plain) in res.items()}
 
 
 def phase_kernel_checks(torch, dev):
     import numpy as np
-    from gaussian_garments_tpu_torch.data.synthetic import make_splat_scene
+    from gaussian_garments_tpu_torch.data.synthetic import make_cull_scene, make_splat_scene
     from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.ops.rasterizer_ref import rasterize_reference
     from gaussian_garments_tpu_torch.probes.scene import project_arrays
@@ -235,6 +309,27 @@ def phase_kernel_checks(torch, dev):
         e_d = max_err(k.depth, dr)
         print(f"  fwd kernel vs oracle: image/alpha {e:.3g}, depth {e_d:.3g}")
         check(e <= 2e-4 and e_d <= 1e-3 * drange, "kernel disagrees with the oracle")
+
+    # splats aimed at the culls (the row spans and the kernels' warp boxes):
+    # contours past 3σ at opacity 0.95-0.99, centres on warp corners, long
+    # thin and bad-conic splats
+    big = 512
+    proj = make_cull_scene(2000, 5, width=big, height=big, device=dev)
+    pairs = tiles.bin_pairs(proj, image_width=big, image_height=big)
+    k = tiles.composite_tiles(pairs, image_height=big, image_width=big)
+    p = tiles.composite_tiles_plain(pairs, image_height=big, image_width=big)
+    torch.cuda.synchronize()
+    n_bad = int((tiles.warp_extents(tiles.ellipse(proj))[:, 0] < 0).sum())
+    what = f"cull scene: 2000 splats @ {big}², {n_bad} bad conics, {int(pairs.ranges[-1])} pairs"
+    errs["composite_fwd"] = max(errs["composite_fwd"], compare_fwd(
+        torch, k, p, float(proj.depth.max() - proj.depth.min()), what))
+    same = float((k.last_pair == p.last_pair).float().mean())
+    exact = all(torch.equal(getattr(k, f), getattr(p, f))
+                for f in ("color", "depth", "alpha", "final_logt"))
+    print(f"  last pair equal at {same:.6f} of pixels; outputs bit for bit: {exact}")
+    check(same > 0.999, f"{what}: last pairs differ")
+    errs["composite_bwd"] = max(errs["composite_bwd"], compare_bwd(
+        torch, tiles, pairs, k, cotangents(torch, dev, big, big, 13), big, big, 1e-4, what))
 
     # one saturated tile: 600 near-opaque splats stacked in depth
     # (tests/test_pallas.py:144-152), at that file's 64² and camera
@@ -298,7 +393,7 @@ def phase_bench_shape(torch, dev):
                     f"bench.py shape, {proj.radii.numel()} splats @ {w}x{h}")
         cot = cotangents(torch, dev, h, w, 11)
         compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, f"bench.py shape @ {w}x{h}")
-        time_both(torch, tiles, pairs, k, cot, h, w, f"bench.py shape @ {w}x{h}")
+        time_both(torch, tiles, proj, pairs, k, cot, h, w, f"bench.py shape @ {w}x{h}")
 
 
 def phase_inference(torch, dev, tmp, out_root):
@@ -366,10 +461,12 @@ def phase_inference(torch, dev, tmp, out_root):
                     f"{int(counts.max())} per tile")
         ms = cuda_ms(lambda: tiles.composite_tiles_cuda(pairs, **kw), 20)
         plain = cuda_ms(lambda: tiles.composite_tiles_plain(pairs, **kw), 1)
-        bound, by, nbytes, evals = work(torch, pairs, k, HEIGHT, WIDTH)["composite_fwd"]
+        wk = work(torch, proj, pairs, k, HEIGHT, WIDTH)
+        bound, by, nbytes, terms = wk["composite_fwd"]
         print(f"  composite_fwd at the inference shape: kernel {ms:.4f} ms (CUDA events, mean "
               f"of 20), plain {plain:.2f} ms (mean of 1), bound {bound:.4f} ms by {by} "
-              f"({nbytes} B, {evals} pixel-pair evaluations)")
+              f"({nbytes} B, {terms} terms); pairs {wk['rect_pairs']} in the plain rect, "
+              f"{wk['pairs']} after the row-span cull")
 
 
 def read_logs(path):
@@ -589,7 +686,7 @@ def phase_s2_split(torch, dev, out_root):
             torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
         cot = cotangents(torch, dev, h, w, 5)
         errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
-        timing = time_both(torch, tiles, pairs, k, cot, h, w, what)
+        timing = time_both(torch, tiles, proj, pairs, k, cot, h, w, what)
     return errs, timing
 
 
@@ -776,7 +873,7 @@ def phase_s3_split(torch, dev):
             torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
         cot = cotangents(torch, dev, h, w, 5)
         errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
-        timing = time_both(torch, tiles, pairs, k, cot, h, w, what)
+        timing = time_both(torch, tiles, proj, pairs, k, cot, h, w, what)
     return errs, timing
 
 

@@ -13,35 +13,35 @@
 // sum w (1,H,W), written planar with no untile pass, plus each pixel's final
 // log T and the index of its last contributing pair (for the backward kernel).
 //
-// Design: one thread block per 16x32 tile, 512 threads, one pixel each. The
-// block walks its tile's depth-sorted pair range in batches of 512 splats
-// staged in shared memory (3 x float4 per splat), and every thread runs the
-// serial front-to-back loop over the batch. The block stops early once every
-// pixel of the tile is saturated (__syncthreads_count).
+// What bounds it on this card: the pixel-pair evaluations, each an expf and
+// its gates, and for each contributing pair a log1pf, an expf and ~10 flops;
+// not device-memory bytes (a splat is read once per tile it touches). The
+// binning (ops/tiles.py) already keeps only the tile rows that the splat's
+// alpha >= 1/255 ellipse reaches; inside a tile most splats still cover a
+// few of its 512 pixels.
 //
-// What bounds it on this card: per-pixel serial work (one expf per
-// splat-pixel pair, plus log1pf/expf and ~10 FMAs per contributing pair) and
-// shared-memory broadcast reads of the staged splats, not device-memory
-// bytes: a splat is read from device memory once per tile it touches and then
-// served to 512 pixels from shared memory. The design keeps the inner loop
-// free of device-memory traffic and of divergence-prone indexing, and exits
-// saturated tiles early; it does not yet split batches across warps or skip
-// splats per warp, which is where a faster version would go.
+// Design: one 512-thread block per 16x32 tile, one pixel a thread, each warp
+// an 8x4-pixel sub-tile (splat_tile.cuh). The block stages its tile's
+// depth-sorted pairs in batches of 512 in shared memory; the staging thread
+// also computes the splat's warp box from its conic and opacity and from it
+// the warp mask, the warps whose pixels the box reaches. Each warp then
+// walks only the splats whose mask holds its bit: a ballot over 32 staged
+// splats at a time, then the set bits in depth order, so every pixel still
+// sees its splats front to back and a skipped splat is one that its gates
+// would have dropped at every pixel of the warp.
+// A pixel stops when it saturates, a warp when all its pixels have
+// (__all_sync), the block when all warps have (__syncthreads_count).
 //
 // The build uses -fmad=false so that the gate decisions (power <= 0,
 // alpha >= 1/255, T >= 1e-4) round exactly as the plain PyTorch version's
-// separate elementwise ops do.
+// separate elementwise ops do; the kernel's output equals the plain
+// version's bit for bit.
 
-#include <cuda_runtime.h>
+#include "splat_tile.cuh"
 
 namespace {
 
-constexpr int kTileW = 16;
-constexpr int kTileH = 32;
-constexpr int kPix = kTileW * kTileH;  // threads per block, splats per batch
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
-constexpr float kAlphaMax = 0.99f;
+using namespace splat_tile;
 
 // feats: (N, 12) f32 rows [mx, my, ca, cb | cc, opacity, r, g | b, depth, 0, 0]
 __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
@@ -51,12 +51,17 @@ __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
     float* __restrict__ final_logt, int* __restrict__ last_pair) {
   __shared__ float4 s_a[kPix];
   __shared__ float4 s_b[kPix];
-  __shared__ float4 s_c[kPix];
+  __shared__ float2 s_c[kPix];
+  __shared__ unsigned short s_mask[kPix];
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
-  const int px = (tile % tiles_x) * kTileW + (t % kTileW);
-  const int py = (tile / tiles_x) * kTileH + (t / kTileW);
+  const int lane = t & 31;
+  const unsigned bit = 1u << (t >> 5);
+  const int ox = (tile % tiles_x) * kTileW;
+  const int oy = (tile / tiles_x) * kTileH;
+  const int px = pixel_x(ox, t);
+  const int py = pixel_y(oy, t);
   const bool inside = px < width && py < height;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
@@ -74,34 +79,46 @@ __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
     const int p = base + t;
     if (p < end) {
       const int s = pair_splat[p];
-      s_a[t] = feats[3 * s];
-      s_b[t] = feats[3 * s + 1];
-      s_c[t] = feats[3 * s + 2];
+      const float4 a = feats[3 * s];
+      const float4 b = feats[3 * s + 1];
+      const float4 c = feats[3 * s + 2];
+      s_a[t] = a;
+      s_b[t] = b;
+      s_c[t] = make_float2(c.x, c.y);
+      s_mask[t] = static_cast<unsigned short>(warp_mask(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy));
     }
     __syncthreads();
     const int n = min(kPix, end - base);
-    for (int j = 0; j < n && !done; ++j) {
-      const float4 a = s_a[j];  // mx, my, conic a, conic b
-      const float4 b = s_b[j];  // conic c, opacity, r, g
-      const float dx = a.x - fx;
-      const float dy = a.y - fy;
-      const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
-      if (power > 0.0f) continue;
-      const float al = fminf(kAlphaMax, b.y * expf(power));
-      if (al < kAlphaEps) continue;
-      const float4 c = s_c[j];  // b, depth
-      const float w = al * trans;
-      acc_r += b.z * w;
-      acc_g += b.w * w;
-      acc_b += c.x * w;
-      acc_d += c.y * w;
-      acc_a += w;
-      log_t += log1pf(-al);
-      trans = expf(log_t);
-      last = base + j;
-      // the next splat would see T < 1e-4 and contribute nothing, nor would
-      // any after it: this pixel is done
-      if (trans < kTEps) done = true;
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      if (__all_sync(kFull, done)) break;
+      const int jl = j0 + lane;
+      unsigned hits = __ballot_sync(kFull, jl < n && (s_mask[jl] & bit) != 0u);
+      while (hits != 0u) {
+        const int j = j0 + __ffs(hits) - 1;
+        hits &= hits - 1u;
+        if (done) continue;
+        const float4 a = s_a[j];  // mx, my, conic a, conic b
+        const float4 b = s_b[j];  // conic c, opacity, r, g
+        const float dx = a.x - fx;
+        const float dy = a.y - fy;
+        const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
+        if (power > 0.0f) continue;
+        const float al = fminf(kAlphaMax, b.y * expf(power));
+        if (al < kAlphaEps) continue;
+        const float2 c = s_c[j];  // b, depth
+        const float w = al * trans;
+        acc_r += b.z * w;
+        acc_g += b.w * w;
+        acc_b += c.x * w;
+        acc_d += c.y * w;
+        acc_a += w;
+        log_t += log1pf(-al);
+        trans = expf(log_t);
+        last = base + j;
+        // the next splat would see T < 1e-4 and contribute nothing, nor would
+        // any after it: this pixel is done
+        if (trans < kTEps) done = true;
+      }
     }
   }
 
@@ -128,7 +145,7 @@ int gg_composite_fwd(const float* feats, const int* pair_splat, const int* range
                      float* depth, float* alpha, float* final_logt, int* last_pair,
                      void* stream) {
   if (num_tiles > 0) {
-    composite_fwd_kernel<<<num_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
+    composite_fwd_kernel<<<num_tiles, splat_tile::kPix, 0, static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(feats), pair_splat, ranges, tiles_x, width, height,
         color, depth, alpha, final_logt, last_pair);
   }

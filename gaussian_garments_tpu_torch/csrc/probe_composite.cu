@@ -10,9 +10,10 @@
 // Kernels:
 //   probe_null        the launch shape of composite_fwd (one 512-thread block
 //                     per 16x32 tile): walks the tile's pair range in batches
-//                     of 512, stages each batch's features in shared memory
-//                     exactly as composite_fwd does, writes the tile's empty
-//                     outputs (zeros, last_pair -1) and no per-pixel work.
+//                     of 512, stages each batch's 12 features in shared
+//                     memory (composite_fwd stages 10 and a warp mask),
+//                     writes the tile's empty outputs (zeros, last_pair -1)
+//                     and does no per-pixel work.
 //                     One checksum per tile, the float64 sum of the staged
 //                     features, keeps the staging live.
 //   probe_alpha_only  composite_fwd's per-pixel loop with its gates

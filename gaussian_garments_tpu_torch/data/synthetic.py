@@ -5,7 +5,8 @@ Port of ``gaussian_garments_tpu/data/synthetic.py`` (``make_cloth_template``,
 ``make_scene``, ``write_reference_layout``), so a dataset can be built on a
 machine without jax. The ground truth is rendered with the port's own tiled
 compositor. Plus ``make_splat_scene``, a seeded random splat scene for kernel
-checks, and ``build_garment_splats``, the 150K-splat scene of ``bench.py``.
+checks, ``make_cull_scene``, screen-space splats aimed at the compositor's
+culls, and ``build_garment_splats``, the 150K-splat scene of ``bench.py``.
 """
 from __future__ import annotations
 
@@ -326,3 +327,45 @@ def make_splat_scene(n: int, seed: int, *, n_wide: int = 0, spread: float = 0.3,
         scales[:n_wide] = rng.uniform(0.25, 0.4, (n_wide, 3)).astype(np.float32)
         opac[:n_wide] = 0.5
     return {"means": means, "scales": scales, "rots": rots, "opacity": opac, "shs": shs}
+
+
+def make_cull_scene(n: int, seed: int, *, width: int, height: int, device=None):
+    """Seeded screen-space splats aimed at the compositor's culls (the row
+    spans of ``bin_pairs`` and the kernels' warp boxes), as a
+    ``ProjectedGaussians`` on ``device``:
+
+    - opacities 0.95-0.99, so the α ≥ 1/255 contour (3.30σ-3.33σ) reaches
+      past the 3σ radius into tiles that the rect covers;
+    - anisotropic, rotated covariances, σ from 0.3 to 12 px per axis;
+    - half the centres within 0.5 px of a warp corner (x a multiple of 8, y
+      of 4: the kernels' 8×4-pixel warps), which the tile corners are among;
+    - every 50th splat with a bad conic (det ≤ 0, or negative definite) and
+      a 12 px radius.
+
+    Depths are distinct; colours are uniform in [0, 1]."""
+    import torch
+
+    from gaussian_garments_tpu_torch.ops.projection import ProjectedGaussians
+
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0.0, 1.0, (n, 2)) * [width, height]
+    corner = np.round(xy / [8.0, 4.0]) * [8.0, 4.0] + rng.uniform(-0.5, 0.5, (n, 2))
+    xy = np.where((rng.rand(n) < 0.5)[:, None], corner, xy)
+    var = np.exp(rng.uniform(np.log(0.3), np.log(12.0), (n, 2))) ** 2
+    th = rng.uniform(0.0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    cxx = cs * cs * var[:, 0] + sn * sn * var[:, 1]
+    cyy = sn * sn * var[:, 0] + cs * cs * var[:, 1]
+    cxy = cs * sn * (var[:, 0] - var[:, 1])
+    det = cxx * cyy - cxy * cxy
+    conic = np.stack([cyy / det, -cxy / det, cxx / det], 1)
+    radii = np.ceil(3.0 * np.sqrt(var.max(1)))
+    bad = np.arange(n) % 50 == 0
+    conic[bad] = np.array([[1.0, 2.0, 1.0], [0.5, 0.0, -0.2], [-0.3, 0.1, -0.4]])[
+        np.arange(bad.sum()) % 3]
+    radii[bad] = 12
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return ProjectedGaussians(
+        means2d=f32(xy), conic=f32(conic), depth=f32(1.0 + 0.01 * rng.permutation(n)),
+        radii=torch.as_tensor(radii.astype(np.int32), device=device),
+        rgb=f32(rng.uniform(0.0, 1.0, (n, 3))), opacity=f32(rng.uniform(0.95, 0.99, n)))

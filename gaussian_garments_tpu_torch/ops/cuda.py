@@ -3,7 +3,8 @@ ctypes loader.
 
 Every kernel source lives in ``csrc/`` and exposes a plain C interface, so
 it builds with nvcc alone (no PyTorch headers) into a shared library under
-the git-ignored ``build/``, keyed by a hash of its source and flags, and is
+the git-ignored ``build/``, keyed by a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, and is
 loaded with ctypes. ``build_kernels()`` starts one nvcc per source, all at
 once. Nothing is built when this module is imported: a library is built at
 the first launch of one of its kernels, or by an explicit ``build_kernels()``.
@@ -82,7 +83,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256(source_path(source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``source``, keyed by its source, the shared headers
+    ``csrc/*.cuh`` and the flags."""
+    digest = hashlib.sha256(source_path(source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libgg_{source}_{digest.hexdigest()[:16]}.so"
 
 

@@ -4,13 +4,19 @@ Port of ``gaussian_garments_tpu/ops/pallas_tiles.py``:
 
 - ``tile_rects``: the opacity-aware per-axis splat rect and the ``alive``
   rule, ported exactly from ``_tile_rects``;
-- ``bin_pairs``: CUDA-style binning as torch ops. Each splat emits the tiles
-  of its rect clipped to a ``max_tiles_side``² window anchored at the rect's
-  top-left; an exclusive scan of the per-splat counts places the pairs, each
-  pair gets the int64 key ``tile·N + depth_rank`` (rank from a stable argsort
-  of depth), ``torch.sort`` orders them and a search gives per-tile ranges.
-  Pairs are allocated exactly from the counts, so nothing overflows
-  (``n_overflow`` is always 0);
+- ``row_spans``: the exact per-(splat, tile-row) x-span of the α ≥ 1/255
+  ellipse inside the rect, ported exactly from ``_row_spans``; both share
+  the per-splat ellipse terms of ``ellipse``;
+- ``bin_pairs``: CUDA-style binning as torch ops. Each alive splat emits the
+  tiles of its row spans inside a ``max_tiles_side``² window anchored at the
+  rect's top-left; an exclusive scan of the per-(splat, row) widths places
+  the pairs, each pair gets the int64 key ``tile·N + depth_rank`` (rank from
+  a stable argsort of depth), ``torch.sort`` orders them and a search gives
+  per-tile ranges. Pairs are allocated exactly from the counts, so nothing
+  overflows (``n_overflow`` is always 0). The row spans drop only pairs
+  whose α is below 1/255 at every pixel of their tile, so every output and
+  gradient equals that of the plain rect; the JAX package applies them at
+  ``max_tiles_side`` ≤ 8 (its nibble packing), the port at every side;
 - ``composite_tiles``: the compositor, one ``torch.autograd.Function``. Its
   forward runs the hand-written kernel ``csrc/composite_fwd.cu`` for CUDA
   tensors and ``composite_tiles_plain``, the same math in plain torch, for
@@ -18,12 +24,15 @@ Port of ``gaussian_garments_tpu/ops/pallas_tiles.py``:
   ``composite_tiles_backward_plain``. Both kernels are built with nvcc at
   first use and loaded with ctypes (``ops/cuda.py``).
 
-Tiles are 16 wide × 32 tall, as in the JAX package. The row-exact span culling
-of the JAX package (``_row_spans``) is not ported: it removes only pairs whose
-contribution is exactly zero.
+Tiles are 16 wide × 32 tall, as in the JAX package. The kernels skip, per
+warp of 8×4 pixels, the splats whose warp box misses the warp; they compute
+the box from the conic and opacity as they stage a splat, and
+``warp_extents`` is its torch twin, for the tests. Columns 10-11 of the
+feature table are zero.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -35,37 +44,137 @@ from gaussian_garments_tpu_torch.ops.rasterizer_ref import ALPHA_EPS, ALPHA_MAX,
 TILE_W = 16
 TILE_H = 32
 PIX = TILE_W * TILE_H
-FEAT_DIM = 12       # [mx, my, ca, cb, cc, opacity, r, g, b, depth, 0, 0]
+FEAT_DIM = 12       # [mx, my, ca, cb, cc, opacity, r, g, b, depth, ex, ey]
+SPAN_EPS_PX = 1e-3  # margin of the row spans and the warp boxes (``_SPAN_EPS_PX``)
+# rounding allowance of a warp box per pixel of extent and unit of conic
+# condition: 2^-18, 64 float32 unit roundoffs (see ``warp_extents``)
+BOX_ROUND = 2.0 ** -18
 
 
 def tile_grid(image_width: int, image_height: int):
     return -(-image_width // TILE_W), -(-image_height // TILE_H)
 
 
-def tile_rects(proj: ProjectedGaussians, *, tiles_x: int, tiles_y: int):
+class Ellipse(NamedTuple):
+    """Per-splat terms of the α ≥ 1/255 ellipse {dᵀ·C·d ≤ τ²}, C = [[a, b],
+    [b, c]] the conic and τ² = 2·ln(opacity·255), float32. ``ext`` (N, 2)
+    holds its half-extents (x, y) = (√(τ²·c/det), √(τ²·a/det)), unclamped;
+    ``rect_ok`` is ``_tile_rects``' test of a usable conic, ``ok`` the stricter
+    one of ``_row_spans`` (also a, c > 0)."""
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    det: torch.Tensor
+    det_c: torch.Tensor       # det clamped to ≥ 1e-24
+    tau2: torch.Tensor
+    ext: torch.Tensor
+    rect_ok: torch.Tensor
+    ok: torch.Tensor
+
+
+def ellipse(proj: ProjectedGaussians) -> Ellipse:
+    """The terms that ``tile_rects`` and ``row_spans`` share, computed once:
+    binning costs host time per launch on the card. A finite test is one
+    comparison where the sign is known (τ² > −∞; NaN fails every comparison
+    and survives ``maximum`` and ``minimum``, so two tests share one op);
+    ``torch.isfinite`` launches four ops."""
+    a, b, c = proj.conic.unbind(1)
+    det = a * c - b * b
+    tau2 = 2.0 * torch.log(torch.clamp(proj.opacity, min=1e-12) / ALPHA_EPS)
+    det_c = torch.clamp(det, min=1e-24)
+    ext = torch.sqrt(torch.clamp(tau2[:, None] * torch.stack([c, a], dim=1), min=0.0)
+                     / det_c[:, None])
+    rect_ok = (det > 1e-24) & (torch.maximum(det, tau2) < math.inf)
+    ok = rect_ok & (torch.minimum(a, c) > 1e-24)
+    return Ellipse(a, b, c, det, det_c, tau2, ext, rect_ok, ok)
+
+
+def tile_rects(proj: ProjectedGaussians, *, tiles_x: int, tiles_y: int,
+               ell: Ellipse = None):
     """Per-splat tile rect (x0, y0, x1, y1) and alive mask: the ellipse's
     alpha ≥ 1/255 extent per axis, with the 3σ radius as the outer clamp."""
-    means2d, radii = proj.means2d, proj.radii
-    r = radii.to(torch.float32)
-    ca, cb, cc = proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2]
-    det = ca * cc - cb * cb
-    tau2 = 2.0 * torch.log(torch.clamp(proj.opacity, min=1e-12) / ALPHA_EPS)
-    good = torch.isfinite(det) & (det > 1e-24) & torch.isfinite(tau2)
-    det_c = torch.clamp(det, min=1e-24)
-    ex = torch.where(good, torch.sqrt(torch.clamp(tau2 * cc, min=0.0) / det_c), r)
-    ey = torch.where(good, torch.sqrt(torch.clamp(tau2 * ca, min=0.0) / det_c), r)
-    ex = torch.minimum(torch.where(torch.isfinite(ex), ex, r), r)
-    ey = torch.minimum(torch.where(torch.isfinite(ey), ey, r), r)
-
-    def edge(v, n):
-        return torch.clamp(torch.floor(v), 0, n).to(torch.int64)
-
-    x0 = edge((means2d[:, 0] - ex) / TILE_W, tiles_x)
-    y0 = edge((means2d[:, 1] - ey) / TILE_H, tiles_y)
-    x1 = edge((means2d[:, 0] + ex + TILE_W - 1) / TILE_W + 1, tiles_x)
-    y1 = edge((means2d[:, 1] + ey + TILE_H - 1) / TILE_H + 1, tiles_y)
-    alive = (radii > 0) & (proj.opacity >= ALPHA_EPS)
+    lo, hi, alive = _rects(proj, ellipse(proj) if ell is None else ell, tiles_x, tiles_y)
+    x0, y0 = lo.unbind(1)
+    x1, y1 = hi.unbind(1)
     return x0, y0, x1, y1, alive
+
+
+def _rects(proj: ProjectedGaussians, ell: Ellipse, tiles_x: int, tiles_y: int):
+    """``tile_rects`` as (lo, hi, alive), lo = (x0, y0) and hi = (x1, y1)
+    (N, 2) int64: both axes in each op, with the same float32 roundings
+    (the divisions are by powers of two)."""
+    means2d, radii = proj.means2d, proj.radii
+    size, grid, zero = means2d.new_tensor([[TILE_W, TILE_H], [tiles_x, tiles_y], [0, 0]])
+    r = radii.to(torch.float32)[:, None]
+    e = torch.where(ell.rect_ok[:, None], ell.ext, r)         # ≥ 0, +inf or NaN
+    e = torch.minimum(torch.where(e < math.inf, e, r), r)
+    edge = lambda v: torch.clamp(torch.floor(v), zero, grid).to(torch.int64)
+    lo = edge((means2d - e) / size)
+    hi = edge((means2d + e + size - 1) / size + 1)
+    alive = (radii > 0) & (proj.opacity >= ALPHA_EPS)
+    return lo, hi, alive
+
+
+def row_spans(proj: ProjectedGaussians, ell: Ellipse, lo, hi, alive, *, side: int,
+              tiles_x: int):
+    """Per-(splat, tile-row) exact x-span of the α ≥ 1/255 ellipse inside the
+    rect (``_rects``' lo, hi) clipped to its ``side``² window: (count,
+    first), the row's pairs and its first tile, (N, side) int64 (first is
+    meaningless where count is 0). Ported from ``_row_spans`` with the
+    same float32 roundings: for tile row r with pixel-y strip dy ∈ [l, u],
+    px − mx ∈ [dx⁻, dx⁺] with dx±(dy) = (−b·dy ± √D(dy))/a and
+    D(dy) = (b² − ac)·dy² + a·τ²; dx⁺ is concave, so its strip maximum sits at
+    dy* = −(b/c)·ex clamped into [l, u] (and −dx⁻'s at the mirrored point),
+    plus a margin of ``SPAN_EPS_PX``. The two sides are evaluated together on
+    a last axis of 2, with sign s = −1 for dx⁺ and +1 for −dx⁻ (a sign flip
+    rounds nothing). A row whose D ≤ 0 is empty; a bad conic keeps its full
+    rect row; a dead splat has no row."""
+    col = lambda v: v.reshape(-1, 1, 1)
+    good = ell.ok
+    a_ = torch.where(good, ell.a, 1.0)
+    c_ = torch.where(good, ell.c, 1.0)
+    s = torch.linspace(-1.0, 1.0, 2, device=a_.device)        # exact -1, +1
+    x0, y0 = lo.unbind(1)
+    x1, y1 = hi.unbind(1)
+
+    ry = y0[:, None] + torch.arange(side, device=a_.device)[None, :]
+    in_rect = ry < y1[:, None]
+    top = (ry * TILE_H).to(torch.float32) - proj.means2d[:, 1:2]
+    dy = torch.clamp(s * col((ell.b / c_) * ell.ext[:, 0]), top[..., None],
+                     (top + float(TILE_H - 1))[..., None])
+    d_ = col(-ell.det) * dy * dy + col(a_ * ell.tau2)          # b² − ac = −det exactly
+    ext = (s * col(ell.b) * dy + torch.sqrt(torch.clamp(d_, min=0.0))) / col(a_) + SPAN_EPS_PX
+    edge = torch.floor((col(proj.means2d[:, 0]) - s * ext) / TILE_W).to(torch.int64)
+
+    x_lo, x_hi = x0[:, None], torch.minimum(x1, x0 + side)[:, None]
+    rx0 = torch.clamp(edge[..., 1], x_lo, x_hi)
+    rx1 = torch.clamp(edge[..., 0] + 1, rx0, x_hi)                # x_lo ≤ rx0 ≤ x_hi
+    row_ok = in_rect & ((d_ > 0.0).all(dim=-1) | ~good[:, None])
+    w_full = torch.clamp(x1 - x0, 0, side)[:, None]
+    count = torch.where(row_ok & alive[:, None], torch.where(good[:, None], rx1 - rx0, w_full), 0)
+    first = ry * tiles_x + torch.where(good[:, None], rx0, x_lo)
+    return count, first
+
+
+def warp_extents(ell: Ellipse) -> torch.Tensor:
+    """(N, 2) float32 half-widths (x, y) in pixels of each splat's warp box,
+    centred on its mean: every pixel at which its α can reach 1/255 lies in
+    the box. -1 where the conic is bad (the kernels then give the splat to
+    every warp). The kernels compute the same box as they stage a splat
+    (``csrc/splat_tile.cuh::warp_mask``); this twin is what the tests hold.
+
+    The box is the bounding box of the α ≥ 1/255 ellipse, (ex, ey), not
+    clamped by the 3σ radius (the compositor keeps the tail between 3σ and
+    that contour in the tiles it covers), widened by ``SPAN_EPS_PX`` and by a
+    rounding allowance: float32 evaluates the power's three terms before
+    they cancel, which moves the α gate's contour by up to a few unit
+    roundoffs × extent × κ, κ = (ac + |b|·√(ac)) / det (1 for a round splat,
+    large for a long thin one); the box allows ``BOX_ROUND`` (64 unit
+    roundoffs) × extent × κ."""
+    ac = torch.clamp(ell.a * ell.c, min=0.0)
+    kappa = (ac + ell.b.abs() * torch.sqrt(ac)) / ell.det_c
+    ext = ell.ext + SPAN_EPS_PX + BOX_ROUND * ell.ext * kappa[:, None]   # ≥ 0, +inf or NaN
+    return torch.where(ell.ok[:, None] & (ext < math.inf), ext, -1.0)
 
 
 class TilePairs(NamedTuple):
@@ -91,28 +200,25 @@ def bin_pairs(proj: ProjectedGaussians, *, image_width: int, image_height: int,
     """Duplicate-with-keys, sort and per-tile ranges (see module doc). Only
     ``feats`` carries autograd; the integer binning runs without it."""
     tiles_x, tiles_y = tile_grid(image_width, image_height)
-    feats = splat_features(proj)
     with torch.no_grad():
-        return _bin(proj, feats, tiles_x, tiles_y, max_tiles_side)
+        binned = _bin(proj, ellipse(proj), tiles_x, tiles_y, max_tiles_side)
+    return binned._replace(feats=splat_features(proj))
 
 
-def _bin(proj, feats, tiles_x, tiles_y, side) -> TilePairs:
+def _bin(proj, ell, tiles_x, tiles_y, side) -> TilePairs:
     num_tiles = tiles_x * tiles_y
     n = proj.means2d.shape[0]
     dev = proj.means2d.device
-    x0, y0, x1, y1, alive = tile_rects(proj, tiles_x=tiles_x, tiles_y=tiles_y)
-    n_clipped = (alive & (((x1 - x0) > side) | ((y1 - y0) > side))).sum().to(torch.int32)
-    w = torch.clamp(x1 - x0, 0, side)
-    h = torch.clamp(y1 - y0, 0, side)
-    count = torch.where(alive, w * h, torch.zeros_like(w))
+    lo, hi, alive = _rects(proj, ell, tiles_x, tiles_y)
+    n_clipped = (alive & ((hi - lo) > side).any(dim=1)).sum().to(torch.int32)
+    # entry e = splat·side + row: its pair count, its first tile, its pairs
+    count, first_tile = (v.reshape(-1) for v in row_spans(proj, ell, lo, hi, alive, side=side,
+                                                            tiles_x=tiles_x))
     total = int(count.sum())
-
-    sid = torch.repeat_interleave(torch.arange(n, device=dev), count, output_size=total)
-    first = torch.cumsum(count, 0) - count
-    j = torch.arange(total, device=dev) - first[sid]
-    wj = w[sid]
-    jy = torch.div(j, wj, rounding_mode="floor")
-    tile = (y0[sid] + jy) * tiles_x + x0[sid] + (j - jy * wj)
+    e = torch.repeat_interleave(torch.arange(n * side, device=dev), count, output_size=total)
+    tile = ((first_tile - (torch.cumsum(count, 0) - count))[e]
+            + torch.arange(total, device=dev))
+    sid = torch.div(e, side, rounding_mode="floor")
 
     order = torch.argsort(proj.depth, stable=True)
     rank = torch.empty_like(order)
@@ -120,7 +226,7 @@ def _bin(proj, feats, tiles_x, tiles_y, side) -> TilePairs:
     key_sorted, perm = torch.sort(tile * n + rank[sid])
     bounds = torch.arange(num_tiles + 1, device=dev, dtype=torch.int64) * n
     ranges = torch.searchsorted(key_sorted, bounds)
-    return TilePairs(feats=feats,
+    return TilePairs(feats=None,
                      pair_splat=sid[perm].to(torch.int32).contiguous(),
                      ranges=ranges.to(torch.int32).contiguous(),
                      n_clipped=n_clipped, tiles_x=tiles_x, tiles_y=tiles_y)

@@ -6,8 +6,9 @@ Counterpart of the TPU probe ``scripts/profile_kernel_null.py`` at its scene
 ``bin_pairs``). Three rows:
 
 - ``full``: ``csrc/composite_fwd.cu`` as it is;
-- ``null``: the same launch shape and the same shared-memory staging of every
-  batch of splats, no per-pixel work; it writes the tile's empty outputs and
+- ``null``: the same launch shape and shared-memory staging of every batch of
+  splats (all 12 features; the full kernel stages 10 and a warp mask), no
+  per-pixel work; it writes the tile's empty outputs and
   one float64 checksum per tile (the sum of the staged features);
 - ``alpha_only``: the per-pixel loop with the forward's gates but no colour,
   depth, transmittance or early stop; it writes Σα and Σlog1p(−α) per pixel

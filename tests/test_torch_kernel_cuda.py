@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from gaussian_garments_tpu_torch.data.synthetic import make_splat_scene
+from gaussian_garments_tpu_torch.data.synthetic import make_cull_scene, make_splat_scene
 from gaussian_garments_tpu_torch.ops import tiles
 from gaussian_garments_tpu_torch.ops.projection import project_gaussians
 from gaussian_garments_tpu_torch.ops.rasterizer_ref import rasterize_reference
@@ -153,6 +153,22 @@ def test_backward_kernel_matches_plain_on_saturated_tile(dev):
     assert int((pairs.ranges[1:] - pairs.ranges[:-1]).max()) > 256
     assert float(out.alpha.max()) > 0.9999
     assert backward_error(pairs, out, _cotangents(dev, 1)) <= 2e-4
+
+
+def test_kernels_match_plain_on_cull_scene(dev):
+    """Splats aimed at the culls (``make_cull_scene``): opacity 0.95-0.99
+    contours past 3σ, centres on warp corners, long thin and bad-conic
+    splats. The forward matches its plain version as above; the backward to
+    1e-4 × max per component."""
+    proj = make_cull_scene(3000, 4, width=W, height=H, device=dev)
+    pairs, k, p = _both(proj)
+    assert bool((tiles.warp_extents(tiles.ellipse(proj))[:, 0] < 0).any())
+    torch.testing.assert_close(k.color, p.color, atol=1e-4, rtol=0)
+    torch.testing.assert_close(k.alpha, p.alpha, atol=1e-4, rtol=0)
+    drange = float(proj.depth.max() - proj.depth.min())
+    torch.testing.assert_close(k.depth, p.depth, atol=1e-3 * drange, rtol=0)
+    assert (k.last_pair == p.last_pair).float().mean() > 0.999
+    assert backward_error(pairs, k, _cotangents(dev, 3)) <= 1e-4
 
 
 def test_backward_kernel_matches_oracle_autograd(dev):

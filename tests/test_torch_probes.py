@@ -15,12 +15,12 @@ Tolerances:
 - checksums: rtol 1e-6 (float64 sums of the same float32 features in another
   order).
 
-``pack_pairs`` at ``max_tiles_side`` ≤ 8 trims each splat's tile rect to
-row-exact ellipse spans (``_row_spans``), which the port does not carry over:
-the pairs it drops contribute exactly zero. At side 9 it packs the plain
-rects, which equal side 6's when no splat is clipped (asserted), so the pair
-counts, the work list and the checksums are held against the side-9 pack and
-``alpha_only`` against both.
+``bin_pairs`` trims each splat's tile rect to row-exact ellipse spans as
+``pack_pairs`` does at ``max_tiles_side`` ≤ 8 (``_row_spans``), so the pair
+counts, the work list and the checksums are held against the side-6 pack,
+the port's side. At side 9 ``pack_pairs`` packs the plain rects, which hold
+extra pairs whose α is below 1/255 at every pixel of their tile:
+``alpha_only`` is held against both.
 """
 import jax
 import jax.numpy as jnp
@@ -68,6 +68,7 @@ def scene():
                                    pair_budget=65536, feats_packed=False) for side in (6, 9)}
     pairs = tiles.bin_pairs(tp, image_width=W, image_height=H)
     assert int(pairs.n_clipped) == int(packed[6].n_clipped) == int(packed[9].n_clipped) == 0
+    assert int(packed[6].n_valid) < int(packed[9].n_valid)
     return {"packed": packed, "pairs": pairs, "tiles_x": tx, "tiles_y": ty}
 
 
@@ -131,7 +132,7 @@ def test_gather_entries_bound_by_bytes():
 # ---------------------------------------------------------------------------
 
 def test_bin_pairs_counts_match_pack_pairs(scene):
-    pk, pairs = scene["packed"][9], scene["pairs"]
+    pk, pairs = scene["packed"][6], scene["pairs"]
     nt = scene["tiles_x"] * scene["tiles_y"]
     counts = (pairs.ranges[1:] - pairs.ranges[:-1]).numpy()
     np.testing.assert_array_equal(counts, np.asarray(pk.counts)[:nt])
@@ -142,7 +143,7 @@ def test_bin_pairs_counts_match_pack_pairs(scene):
 def test_worklist_matches_pack_pairs(scene):
     """A1's items, built from the JAX ``starts``/``counts``, equal the JAX
     ``chunk_of_item``/``tile_of_item``/``k_of_item`` over its real items."""
-    pk = scene["packed"][9]
+    pk = scene["packed"][6]
     nt = scene["tiles_x"] * scene["tiles_y"]
     starts, counts = np.asarray(pk.starts)[:nt], np.asarray(pk.counts)[:nt]
     ranges = torch.as_tensor(np.append(starts, starts[-1] + counts[-1]).astype(np.int32))
@@ -179,7 +180,7 @@ def test_grid_ladder_plain_checksums(scene):
     the tiles it must (d: tile 0 only) and leaves the rest unwritten."""
     pairs = scene["pairs"]
     wl = build_worklist(pairs.ranges)
-    want = _jax_item_sums(scene["packed"][9], wl.n_items)
+    want = _jax_item_sums(scene["packed"][6], wl.n_items)
     for v in grid_overhead.VARIANTS:
         out, checksum = grid_overhead.grid_ladder(pairs, wl, v)
         assert checksum.dtype == torch.float64 and checksum.shape == (wl.n_items,)
@@ -199,7 +200,8 @@ def test_grid_ladder_plain_checksums(scene):
 
 def test_null_plain_checksums(scene):
     """One checksum per tile: the sum of its pairs' features, equal to the
-    sum of the grid ladder's per-item checksums of that tile."""
+    sum of the grid ladder's per-item checksums of that tile, and the JAX
+    pair space's per-tile feature sums."""
     pairs = scene["pairs"]
     out, checksum = composite_null.probe_null(pairs, image_height=H, image_width=W)
     assert all(bool((x == 0).all()) for x in (out.color, out.depth, out.alpha, out.final_logt))
@@ -210,6 +212,10 @@ def test_null_plain_checksums(scene):
     per_tile = torch.zeros(nt, dtype=torch.float64).index_add_(0, wl.tile_of_item.long(),
                                                                per_item)
     np.testing.assert_allclose(checksum.numpy(), per_tile.numpy(), rtol=1e-6, atol=1e-9)
+    pk = scene["packed"][6]
+    f = np.asarray(pk.feats_t, np.float64)
+    want = [f[:, int(pk.starts[t]):int(pk.starts[t]) + int(pk.counts[t])].sum() for t in range(nt)]
+    np.testing.assert_allclose(checksum.numpy(), want, rtol=1e-6, atol=1e-9)
 
 
 # ---------------------------------------------------------------------------

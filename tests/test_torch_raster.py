@@ -10,6 +10,8 @@ runs it, at that file's sizes (64², ~150 splats). Tolerances:
   prefix blocks, the oracle by cumsum, the plain version serially), so they
   agree to float32 rounding and not bit for bit;
 - tile rects, pair counts, clip counts and mesh face ids: exact;
+- the plain compositor on the row-span pairs against the plain rect: the
+  image outputs bit for bit, gradients 1e-6 × max (summed in another order);
 - mesh depth: atol 1e-5 (the same float32 expressions).
 """
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from gaussian_garments_tpu_torch.data import synthetic as tsyn
 from gaussian_garments_tpu_torch.ops import tiles
 from gaussian_garments_tpu_torch.ops.mesh_raster import rasterize_mesh
 from gaussian_garments_tpu_torch.ops.projection import project_gaussians
-from gaussian_garments_tpu_torch.ops.rasterizer_ref import rasterize_reference
+from gaussian_garments_tpu_torch.ops.rasterizer_ref import ALPHA_EPS, ALPHA_MAX, rasterize_reference
 from gaussian_garments_tpu_torch.ops.tiled import bin_splats
 from gaussian_garments_tpu_torch.utils.camera import make_camera
 
@@ -87,26 +89,131 @@ def test_tile_rects_and_clip_count_match_jax(rng, wide):
     assert int(pairs.n_clipped) > 0
 
 
-def test_bin_pairs_against_brute_force(rng):
-    """Each tile's range holds exactly the alive splats whose clipped rect
-    covers it, front to back by (stable) depth rank."""
-    _, tp = _project_both(_scene(rng, wide=4))
-    side = 3
-    pairs = tiles.bin_pairs(tp, image_width=W, image_height=H, max_tiles_side=side)
-    tx, ty = tiles.tile_grid(W, H)
+def _rect_pairs(tp, pairs, side):
+    """The plain-rect binning: every tile of each alive splat's clipped rect,
+    front to back by (stable) depth rank, on ``pairs``' feature table."""
+    tx, ty = pairs.tiles_x, pairs.tiles_y
     x0, y0, x1, y1, alive = (v.numpy() for v in tiles.tile_rects(tp, tiles_x=tx, tiles_y=ty))
-    rank = np.empty(len(alive), np.int64)
-    rank[np.argsort(tp.depth.numpy(), kind="stable")] = np.arange(len(alive))
-    ranges = pairs.ranges.numpy()
-    splat = pairs.pair_splat.numpy()
+    per_tile = [[] for _ in range(tx * ty)]
+    for i in np.argsort(tp.depth.numpy(), kind="stable"):
+        if alive[i]:
+            for cy in range(y0[i], min(y1[i], y0[i] + side)):
+                for cx in range(x0[i], min(x1[i], x0[i] + side)):
+                    per_tile[cy * tx + cx].append(i)
+    ranges = np.cumsum([0] + [len(p) for p in per_tile]).astype(np.int32)
+    splat = np.array([i for p in per_tile for i in p], np.int32)
+    return pairs._replace(pair_splat=torch.from_numpy(splat), ranges=torch.from_numpy(ranges))
+
+
+def _gate(feats, tile, tx):
+    """(len(feats), 512) power and the forward's gate (power ≤ 0, α ≥ 1/255)
+    of each splat row of ``feats`` at each pixel of ``tile``, float32 as in
+    ``composite_tiles_plain``; and the pixels' (x, y)."""
+    p = torch.arange(tiles.PIX)
+    px = ((tile % tx) * tiles.TILE_W + p % tiles.TILE_W).to(torch.float32)[None]
+    py = ((tile // tx) * tiles.TILE_H + p // tiles.TILE_W).to(torch.float32)[None]
+    col = lambda i: feats[:, i:i + 1]
+    dx, dy = col(0) - px, col(1) - py
+    power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
+    al = torch.clamp(col(5) * torch.exp(power), max=ALPHA_MAX)
+    return power, (power <= 0.0) & (al >= ALPHA_EPS), px, py
+
+
+@pytest.mark.parametrize("side", [3, 6])
+def test_bin_pairs_against_brute_force(rng, side):
+    """The row-span rule: each tile's range holds, front to back by (stable)
+    depth rank, alive splats whose clipped rect covers it; every pair of the
+    rect that the spans leave out has α < 1/255 at all 512 pixels of its
+    tile, and some are left out. At side 3 the wide splats are clipped."""
+    _, tp = _project_both(_scene(rng, wide=4))
+    pairs = tiles.bin_pairs(tp, image_width=W, image_height=H, max_tiles_side=side)
+    rect = _rect_pairs(tp, pairs, side)
+    tx, ty = tiles.tile_grid(W, H)
+    ranges, splat = pairs.ranges.numpy(), pairs.pair_splat.numpy()
     assert ranges[0] == 0 and ranges[-1] == len(splat)
+    dropped = 0
     for t in range(tx * ty):
-        cx, cy = t % tx, t // tx
-        want = [i for i in range(len(alive)) if alive[i]
-                and x0[i] <= cx < min(x1[i], x0[i] + side)
-                and y0[i] <= cy < min(y1[i], y0[i] + side)]
-        want.sort(key=lambda i: rank[i])
-        assert splat[ranges[t]:ranges[t + 1]].tolist() == want, t
+        kept = splat[ranges[t]:ranges[t + 1]].tolist()
+        want = rect.pair_splat[rect.ranges[t]:rect.ranges[t + 1]].tolist()
+        assert [i for i in want if i in set(kept)] == kept, t
+        left_out = sorted(set(want) - set(kept))
+        dropped += len(left_out)
+        if left_out:
+            _, use, _, _ = _gate(pairs.feats[torch.tensor(left_out)], t, tx)
+            assert not bool(use.any()), t
+    assert dropped > 0 and (int(pairs.n_clipped) > 0) == (side == 3)
+
+
+def test_row_spans_leave_the_composite_unchanged(rng):
+    """The plain compositor on the culled pairs against the plain rect, on
+    wide, long thin and near-opaque splats: colour, depth, alpha and final
+    log T bit for bit, the last pair names the same splat, and the feature
+    gradients agree to 1e-6 × max per component (``index_add_`` sums each
+    splat's per-tile terms in another order)."""
+    means, scales, rots, opac, shs = _scene(rng, wide=6)
+    scales[6:40, 0] *= 8.0
+    opac[40:80] = 0.99
+    _, tp = _project_both((means, scales, rots, opac, shs))
+    pairs = tiles.bin_pairs(tp, image_width=W, image_height=H)
+    rect = _rect_pairs(tp, pairs, 6)
+    assert int(pairs.ranges[-1]) < int(rect.ranges[-1])
+    kw = dict(image_height=H, image_width=W)
+    cut, full = tiles.composite_tiles_plain(pairs, **kw), tiles.composite_tiles_plain(rect, **kw)
+    for name in ("color", "depth", "alpha", "final_logt"):
+        assert torch.equal(getattr(cut, name), getattr(full, name)), name
+    lc, lf = cut.last_pair.long(), full.last_pair.long()
+    assert torch.equal(lc < 0, lf < 0) and bool((lc >= 0).any())
+    assert torch.equal(pairs.pair_splat[lc[lc >= 0]], rect.pair_splat[lf[lf >= 0]])
+    g = torch.from_numpy(rng.randn(5, H, W).astype(np.float32))
+    cot = (g[:3], g[3:4], g[4:5])
+    d_cut = tiles.composite_tiles_backward_plain(pairs, cut.final_logt, cut.last_pair, *cot, **kw)
+    d_full = tiles.composite_tiles_backward_plain(rect, full.final_logt, full.last_pair, *cot,
+                                                  **kw)
+    scale = d_full[:, :10].abs().amax(dim=0)
+    assert bool((scale > 0).all())
+    assert bool(((d_cut - d_full)[:, :10].abs().amax(dim=0) <= 1e-6 * scale).all())
+    assert torch.equal(d_cut[:, 10:], torch.zeros_like(d_cut[:, 10:]))
+
+
+@pytest.mark.parametrize("scene", ["cull", "projected"])
+def test_warp_boxes_hold_every_term(rng, scene):
+    """The kernels' per-warp cull is safe: every (pixel, pair) term that
+    passes the forward's gate lies in the splat's warp box (``warp_extents``,
+    the torch twin of the box the kernels compute as they stage a splat,
+    compared as the kernels compare it), unless the conic is bad (box -1:
+    every warp). Both scenes hold opacity-0.99 (or ≥ 0.95) splats
+    with terms past 3σ; the first also long thin splats on warp corners and
+    bad conics."""
+    if scene == "cull":
+        w, h = 96, 64
+        proj = tsyn.make_cull_scene(400, 3, width=w, height=h, device="cpu")
+    else:
+        w, h = W, H
+        means, scales, rots, opac, shs = _scene(rng, n=200, wide=4)
+        scales[20:60, 1] *= 6.0
+        opac[::3] = 0.99
+        _, proj = _project_both((means, scales, rots, opac, shs))
+    pairs = tiles.bin_pairs(proj, image_width=w, image_height=h)
+    f = pairs.feats
+    assert torch.equal(f[:, 10:], torch.zeros_like(f[:, 10:]))
+    boxes = tiles.warp_extents(tiles.ellipse(proj))
+    bad = boxes[:, 0] < 0
+    assert torch.equal(bad, boxes[:, 1] < 0) and bool((boxes[~bad] > 0).all())
+    if scene == "cull":
+        assert int(bad.sum()) == 8
+    terms = past_3_sigma = outside_box = 0
+    for t in range(pairs.tiles_x * pairs.tiles_y):
+        ids = pairs.pair_splat[pairs.ranges[t]:pairs.ranges[t + 1]].long()
+        rows = f[ids]
+        power, use, px, py = _gate(rows, t, pairs.tiles_x)
+        ex, ey = boxes[ids, 0:1], boxes[ids, 1:2]
+        inside = ((rows[:, 0:1] - ex <= px) & (rows[:, 0:1] + ex >= px)
+                  & (rows[:, 1:2] - ey <= py) & (rows[:, 1:2] + ey >= py))
+        assert not bool((use & ~inside & (ex >= 0)).any()), t
+        terms += int(use.sum())
+        past_3_sigma += int((use & (power < -4.5)).sum())
+        outside_box += int((~inside & (ex >= 0)).sum())
+    assert terms > 0 and past_3_sigma > 0 and outside_box > terms
 
 
 @pytest.mark.parametrize("case", ["plain", "low_opacity"])
