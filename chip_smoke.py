@@ -30,7 +30,11 @@ plain version):
    Each kernel is held against its plain version (gathers exact, checksums
    1e-6 × max, ``alpha_only`` 1e-5 × max) and timed (CUDA events, mean of 20)
    beside its plain version, its library call where there is one, and its
-   bound from this run's inputs;
+   bound from this run's inputs (``alpha_only``: its gate-passing terms, the
+   bound of every pair at every pixel printed beside it, and its share of
+   ``composite_fwd``); ``gather_flat_cluster`` also at every cluster size it
+   is built for (4, 8, 16), each held exact and timed with the staging and
+   without it;
 6. the inference path at production width (texture 512, SH degree 3,
    940×1280, 3 frames) through ``gaussian_garments_tpu_torch.inference.main``,
    and on frame 0's bundle the forward kernel against its plain version;
@@ -173,27 +177,6 @@ def summed_terms(torch, pairs, out):
     return int(total)
 
 
-def warp_lane_evals(torch, proj, pairs):
-    """Lane evaluations that the kernels' per-warp walk leaves, before any
-    early stop: 32 for each (pair, warp of its tile whose pixels the pair's
-    warp box reaches), as ``csrc/splat_tile.cuh::warp_mask`` decides it (its
-    box from the torch twin ``warp_extents``); 16 warps for a bad conic."""
-    from gaussian_garments_tpu_torch.ops import tiles
-
-    counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
-    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device), counts)
-    splat = pairs.pair_splat.long()
-    box = tiles.warp_extents(tiles.ellipse(proj))[splat]
-    f = pairs.feats[splat]
-    mx, my, ex, ey = f[:, 0:1], f[:, 1:2], box[:, 0:1], box[:, 1:2]
-    x0 = ((tile % pairs.tiles_x) * tiles.TILE_W)[:, None] + 8 * torch.arange(2, device=f.device)
-    y0 = ((tile // pairs.tiles_x) * tiles.TILE_H)[:, None] + 4 * torch.arange(8, device=f.device)
-    cols = ((mx - ex <= (x0 + 7).float()) & (mx + ex >= x0.float())).sum(1)
-    rows = ((my - ey <= (y0 + 3).float()) & (my + ey >= y0.float())).sum(1)
-    bad = ~((ex[:, 0] >= 0) & (ey[:, 0] >= 0))
-    return 32 * int(torch.where(bad, 16, cols * rows).sum())
-
-
 def work(torch, proj, pairs, out, h, w):
     """Bytes each kernel must move and the special-function evaluations this
     run's data needs: one per pixel-pair term that the composite sums
@@ -201,12 +184,14 @@ def work(torch, proj, pairs, out, h, w):
     counts, which depend on the binning (forward: every pair of the tile at every
     pixel until it saturates or the range ends; backward: every pair from a
     pixel's last contributing one back to its tile's start), the pairs of
-    the plain rect and of the row spans, and what the warp cull leaves."""
+    the plain rect and of the row spans, and what the warp cull leaves
+    (``probes.composite_null.warp_lanes``)."""
     import math
 
     from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.ops.rasterizer_ref import T_EPS
     from gaussian_garments_tpu_torch.probes.common import HBM_BYTES_S, SFU_OPS_S
+    from gaussian_garments_tpu_torch.probes.composite_null import warp_lanes
     starts = pairs.ranges[:-1].long()
     counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
     tiled = lambda x, fill: tiles._tile_pixels(x, pairs.tiles_x, pairs.tiles_y, fill)
@@ -232,7 +217,7 @@ def work(torch, proj, pairs, out, h, w):
             "composite_bwd": (bound(bwd_bytes, terms), by(bwd_bytes, terms), bwd_bytes, terms),
             "walked_evals": {k: e for k, (_, e) in walked.items()},
             "walked_bound_ms": {k: bound(b, e) for k, (b, e) in walked.items()},
-            "rect_pairs": int(rect.sum()), "pairs": p, "warp_evals": warp_lane_evals(torch, proj, pairs)}
+            "rect_pairs": int(rect.sum()), "pairs": p, "warp_evals": warp_lanes(pairs)}
 
 
 def time_both(torch, tiles, proj, pairs, out, cot, h, w, what):

@@ -16,11 +16,19 @@
 //                     and does no per-pixel work.
 //                     One checksum per tile, the float64 sum of the staged
 //                     features, keeps the staging live.
-//   probe_alpha_only  composite_fwd's per-pixel loop with its gates
+//   probe_alpha_only  composite_fwd's per-warp walk with its gates
 //                     (power <= 0, alpha = min(0.99, o exp(power)),
 //                     alpha >= 1/255) but no colour, depth, transmittance or
 //                     early stop: sum(alpha) and sum(log1p(-alpha)) over all
-//                     of the tile's pairs into a (2, H, W) output.
+//                     of the tile's pairs into a (2, H, W) output. Like
+//                     composite_fwd it takes 8x4-pixel warps
+//                     (splat_tile.cuh), computes each staged splat's warp
+//                     mask, and each warp walks only the splats whose mask
+//                     holds its bit (a ballot over 32 staged splats, then the
+//                     set bits in depth order). A skipped splat is one that
+//                     the gates drop at every pixel of the warp, so each
+//                     pixel sums the same terms in the same order as a walk
+//                     over every pair, bit for bit.
 //   grid_ladder       null blocks over the (tile x 256-pair chunk) work list
 //                     of the TPU kernel, one block per item, 256 threads:
 //                     variant 0 (a) reads 5 separate metadata arrays, stages
@@ -36,24 +44,23 @@
 // What bounds them on this card: the null kernels move few bytes (features
 // once per pair, the zeroed outputs once) and do no arithmetic, so they
 // measure block scheduling and staging latency, which is the point. The
-// alpha_only kernel is bound by one expf per pixel-pair evaluation on the
-// special-function units, like composite_fwd; without the early stop it
-// evaluates every pair of its tile at every pixel.
+// alpha_only kernel is bound by the special-function units, like
+// composite_fwd: its function needs an expf and a log1pf for each term it
+// sums; without the early stop a warp walks every pair of its tile whose
+// warp box reaches it.
 //
 // Built with -fmad=false, so alpha_only's gates round like the plain PyTorch
 // version's separate elementwise ops.
 
-#include <cuda_runtime.h>
+#include "splat_tile.cuh"
 
 namespace {
 
-constexpr int kTileW = 16;
-constexpr int kTileH = 32;
-constexpr int kPix = kTileW * kTileH;
+using splat_tile::kPix;
+using splat_tile::kTileH;
+using splat_tile::kTileW;
 constexpr int kChunk = 256;
 constexpr int kOutRows = 8;
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
 
 __device__ double sum12(float4 a, float4 b, float4 c) {
   return (static_cast<double>(a.x) + a.y + a.z + a.w) + (static_cast<double>(b.x) + b.y + b.z + b.w)
@@ -125,13 +132,19 @@ __global__ void __launch_bounds__(kPix) probe_alpha_only_kernel(
     const float4* __restrict__ feats, const int* __restrict__ pair_splat,
     const int* __restrict__ ranges, int tiles_x, int width, int height,
     float* __restrict__ out) {
+  using namespace splat_tile;
   __shared__ float4 s_a[kPix];
-  __shared__ float4 s_b[kPix];
+  __shared__ float2 s_b[kPix];
+  __shared__ unsigned short s_mask[kPix];
 
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
-  const int px = (tile % tiles_x) * kTileW + (t % kTileW);
-  const int py = (tile / tiles_x) * kTileH + (t / kTileW);
+  const int lane = t & 31;
+  const unsigned bit = 1u << (t >> 5);
+  const int ox = (tile % tiles_x) * kTileW;
+  const int oy = (tile / tiles_x) * kTileH;
+  const int px = pixel_x(ox, t);
+  const int py = pixel_y(oy, t);
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = ranges[tile];
@@ -142,22 +155,31 @@ __global__ void __launch_bounds__(kPix) probe_alpha_only_kernel(
     const int p = base + t;
     if (p < end) {
       const int s = pair_splat[p];
-      s_a[t] = feats[3 * s];
-      s_b[t] = feats[3 * s + 1];
+      const float4 a = feats[3 * s];
+      const float4 b = feats[3 * s + 1];
+      s_a[t] = a;
+      s_b[t] = make_float2(b.x, b.y);
+      s_mask[t] = static_cast<unsigned short>(warp_mask(a.x, a.y, a.z, a.w, b.x, b.y, ox, oy));
     }
     __syncthreads();
     const int n = min(kPix, end - base);
-    for (int j = 0; j < n; ++j) {
-      const float4 a = s_a[j];  // mx, my, conic a, conic b
-      const float4 b = s_b[j];  // conic c, opacity, r, g
-      const float dx = a.x - fx;
-      const float dy = a.y - fy;
-      const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
-      if (power > 0.0f) continue;
-      const float al = fminf(kAlphaMax, b.y * expf(power));
-      if (al < kAlphaEps) continue;
-      sum_alpha += al;
-      sum_log += log1pf(-al);
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int jl = j0 + lane;
+      unsigned hits = __ballot_sync(kFull, jl < n && (s_mask[jl] & bit) != 0u);
+      while (hits != 0u) {
+        const int j = j0 + __ffs(hits) - 1;
+        hits &= hits - 1u;
+        const float4 a = s_a[j];  // mx, my, conic a, conic b
+        const float2 b = s_b[j];  // conic c, opacity
+        const float dx = a.x - fx;
+        const float dy = a.y - fy;
+        const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
+        if (power > 0.0f) continue;
+        const float al = fminf(kAlphaMax, b.y * expf(power));
+        if (al < kAlphaEps) continue;
+        sum_alpha += al;
+        sum_log += log1pf(-al);
+      }
     }
   }
   if (px < width && py < height) {

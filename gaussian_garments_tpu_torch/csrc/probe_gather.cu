@@ -15,15 +15,35 @@
 //   gather_flat_l2      out[p] = table[idx[p]], one thread per index, the
 //                       table read through __ldg. At 606-655 KB the table
 //                       stays in the 50 MB L2 after the first touch.
-//   gather_flat_cluster the counterpart of the VMEM-resident table: a thread
-//                       block cluster of 4 stages the table across its 4
-//                       blocks' dynamic shared memory (a quarter each, at
-//                       most 163,840 B a block), then every block gathers
-//                       through distributed shared memory
-//                       (cluster.map_shared_rank). 33 clusters (132 blocks,
-//                       one an SM) walk over the index blocks. mode 1 skips
-//                       the staging: the same gathers from unstaged shared
-//                       memory (values undefined), to time the gather alone.
+//   gather_flat_cluster the counterpart of the VMEM-resident table: each
+//                       thread block cluster of C blocks (C = 4, 8 or 16, a
+//                       template parameter; 16 is a non-portable size) holds
+//                       the table in its blocks' dynamic shared memory and
+//                       gathers through distributed shared memory. The
+//                       layout interleaves the table's float4 groups over the
+//                       ranks: entry j lies in rank (j >> 2) & (C - 1) at
+//                       float offset ((j >> (2 + log2 C)) << 2) | (j & 3), so
+//                       owner and offset are shifts and masks, every rank
+//                       holds an equal slice (a power-of-two padded
+//                       contiguous slice would leave 3 of 8 or 6 of 16 ranks
+//                       empty, and the reads on the others), and a block
+//                       stages its slice with float4 loads of every C-th
+//                       group. Blocks of 1,024 threads, as many clusters as
+//                       cudaOccupancyMaxActiveClusters allows (two blocks an
+//                       SM where the slice fits twice, C >= 8). The index
+//                       stream is cut into units of `blk` indices (the TPU
+//                       scripts' block), dealt to the clusters in turn; in a
+//                       cluster's units each thread takes two int4 groups of
+//                       indices a step, loaded streaming (__ldcs), makes
+//                       their 8 remote reads before it uses one, and stores
+//                       two float4s streaming (__stcs). The cluster barrier
+//                       is split: a block arrives when its slice is staged
+//                       and loads its first indices before it waits, and
+//                       arrives and waits again before it exits, since no
+//                       block may leave while another reads its slice.
+//                       mode 1 skips the staging: the same gathers from
+//                       unstaged shared memory (values undefined), to time
+//                       the gathers alone.
 //   gather_axis0/1      out[e,j] = tab[idx[e,j], j] and out[r,k] = tab[r,
 //                       idx[r,k]], one thread per output.
 //
@@ -33,18 +53,16 @@
 // from L2 moves a 32-byte sector, so the L2 variant is bound by L2 sector
 // throughput long before HBM; the cluster variant replaces those sectors by
 // distributed-shared-memory reads over the SM-to-SM network, and pays for
-// staging the table into each cluster (33 copies of it). Rows 4A and 4B
-// move under 1.2 MB: they sit at launch latency.
+// staging the table into each cluster (one copy of it per cluster, from
+// L2). Rows 4A and 4B move under 1.2 MB: they sit at launch latency.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kClusterSize = 4;
+constexpr int kClusterThreads = 1024;  // a cluster block's threads
+constexpr int kVec = 2;                // int4 index groups a thread has in flight
 
 __global__ void __launch_bounds__(kThreads) gather_flat_l2_kernel(
     const float* __restrict__ table, const int* __restrict__ idx, float* __restrict__ out,
@@ -56,34 +74,150 @@ __global__ void __launch_bounds__(kThreads) gather_flat_l2_kernel(
   }
 }
 
-// launched as clusters of kClusterSize blocks (cudaLaunchKernelEx)
-__global__ void __launch_bounds__(kThreads) gather_flat_cluster_kernel(
-    const float* __restrict__ table, const int* __restrict__ idx, float* __restrict__ out,
-    long long n, int table_size, int slice, long long blk, int mode) {
-  extern __shared__ float s_table[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  if (mode == 0) {
-    const int lo = rank * slice;
-    const int hi = lo + slice < table_size ? lo + slice : table_size;
-    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) s_table[i - lo] = table[i];
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_count() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+// arrive releases this thread's earlier writes to the cluster; wait acquires
+// every other thread's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The float at shared::cta address `addr` of block `rank` of the cluster.
+__device__ __forceinline__ float load_dsmem(unsigned addr, unsigned rank) {
+  unsigned remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// One int4 group of the index stream: its indices (valid ones first) and
+// how many of them lie before n; g < 0 for none.
+struct Group {
+  int4 j;
+  int g, count;
+};
+
+__device__ __forceinline__ Group load_group(const int* __restrict__ idx, int n, int g) {
+  Group r{make_int4(0, 0, 0, 0), g, 0};
+  if (g < 0) return r;
+  const int first = 4 * g;
+  r.count = min(4, n - first);
+  if (r.count == 4) {
+    r.j = __ldcs(reinterpret_cast<const int4*>(idx) + g);
+  } else {
+    r.j.x = idx[first];
+    if (r.count > 1) r.j.y = idx[first + 1];
+    if (r.count > 2) r.j.z = idx[first + 2];
   }
-  cluster.sync();  // every block's quarter is staged before anyone reads it
+  return r;
+}
 
-  float* parts[kClusterSize];
-#pragma unroll
-  for (int r = 0; r < kClusterSize; ++r) parts[r] = cluster.map_shared_rank(s_table, r);
+template <int kShift>
+__device__ __forceinline__ float gather_one(unsigned base, int j) {
+  constexpr int kMask = (1 << kShift) - 1;
+  const unsigned owner = static_cast<unsigned>(j >> 2) & kMask;
+  const unsigned offset = ((static_cast<unsigned>(j) >> (2 + kShift)) << 2) | (j & 3);
+  return load_dsmem(base + 4u * offset, owner);
+}
 
-  const long long n_blocks = (n + blk - 1) / blk;
-  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
-    const long long end = (b + 1) * blk < n ? (b + 1) * blk : n;
-    for (long long i = b * blk + threadIdx.x; i < end; i += blockDim.x) {
-      const int j = __ldg(idx + i);
-      const int owner = j / slice;
-      out[i] = parts[owner][j - owner * slice];
+// launched as clusters of C = 1 << kShift blocks of kClusterThreads threads
+// (cudaLaunchKernelEx); the dynamic shared memory holds ceil(ceil(table_size
+// / 4) / C) float4 groups
+template <int kShift>
+__global__ void __launch_bounds__(kClusterThreads, kShift >= 3 ? 2 : 1)
+    gather_flat_cluster_kernel(const float* __restrict__ table, int table_size,
+                               const int* __restrict__ idx, float* __restrict__ out, int n,
+                               int blk, int mode) {
+  constexpr int C = 1 << kShift;
+  extern __shared__ float4 s_slice[];
+  const unsigned rank = cluster_ctarank();
+  if (mode == 0) {
+    const int groups = (table_size + 3) >> 2;
+    const int slots = (groups + C - 1) >> kShift;
+    for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+      const int q = (s << kShift) + static_cast<int>(rank);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (4 * q + 3 < table_size) {
+        v = __ldg(reinterpret_cast<const float4*>(table) + q);
+      } else if (q < groups) {
+        v.x = table[4 * q];
+        if (4 * q + 1 < table_size) v.y = table[4 * q + 1];
+        if (4 * q + 2 < table_size) v.z = table[4 * q + 2];
+      }
+      s_slice[s] = v;
     }
   }
-  cluster.sync();  // no block leaves while another may still read its table
+  cluster_arrive();  // this block's slice is staged
+
+  // this cluster's int4 groups of the index stream: units u = cid, cid + nc,
+  // ... of blk / 4 groups each, laid end to end; the cluster's threads take
+  // the local positions k = tc, tc + stride, ... kVec at a time
+  const int n4 = (n + 3) >> 2;
+  const int unit4 = blk >> 2;
+  const int n_units = (n4 + unit4 - 1) / unit4;
+  const int cid = static_cast<int>(cluster_id());
+  const int nc = static_cast<int>(cluster_count());
+  const int local4 = cid < n_units ? ((n_units - 1 - cid) / nc + 1) * unit4 : 0;
+  const int stride = C * static_cast<int>(blockDim.x);
+  const int tc = static_cast<int>(rank * blockDim.x + threadIdx.x);
+  auto group_at = [&](int k) {
+    if (k >= local4) return -1;
+    const int u = k / unit4;
+    const int g = (cid + u * nc) * unit4 + (k - u * unit4);
+    return g < n4 ? g : -1;
+  };
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(s_slice));
+
+  int k = tc;
+  Group grp[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) grp[v] = load_group(idx, n, group_at(k + v * stride));
+  cluster_wait();  // every block's slice is staged
+  while (true) {
+    float4 val[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {  // all remote reads before the first use
+      val[v].x = grp[v].count > 0 ? gather_one<kShift>(base, grp[v].j.x) : 0.0f;
+      val[v].y = grp[v].count > 1 ? gather_one<kShift>(base, grp[v].j.y) : 0.0f;
+      val[v].z = grp[v].count > 2 ? gather_one<kShift>(base, grp[v].j.z) : 0.0f;
+      val[v].w = grp[v].count > 3 ? gather_one<kShift>(base, grp[v].j.w) : 0.0f;
+    }
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      const int c = grp[v].count;
+      if (c == 4) {
+        __stcs(reinterpret_cast<float4*>(out) + grp[v].g, val[v]);
+      } else if (c > 0) {
+        float* o = out + 4 * grp[v].g;
+        o[0] = val[v].x;
+        if (c > 1) o[1] = val[v].y;
+        if (c > 2) o[2] = val[v].z;
+      }
+    }
+    k += kVec * stride;
+    if (k >= local4) break;
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) grp[v] = load_group(idx, n, group_at(k + v * stride));
+  }
+  cluster_arrive();  // this block reads no other slice any more
+  cluster_wait();    // and no other block reads this one
 }
 
 __global__ void __launch_bounds__(kThreads) gather_axis0_kernel(
@@ -106,6 +240,55 @@ __global__ void __launch_bounds__(kThreads) gather_axis1_kernel(
 
 int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
+// Sets up the launch of gather_flat_cluster_kernel<kShift> for a table of
+// table_size entries: shared memory, cluster size, one cluster's grid; and
+// `max_clusters`, how many such clusters the card holds at once (0 if none
+// fits).
+template <int kShift>
+cudaError_t cluster_config(int table_size, cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
+                           int* max_clusters) {
+  constexpr int C = 1 << kShift;
+  const int slots = ((table_size + 3) / 4 + C - 1) / C;
+  const size_t smem = static_cast<size_t>(slots) * sizeof(float4);
+  cudaError_t err = cudaFuncSetAttribute(gather_flat_cluster_kernel<kShift>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(gather_flat_cluster_kernel<kShift>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *config = {};
+  config->gridDim = dim3(C);
+  config->blockDim = dim3(kClusterThreads);
+  config->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(max_clusters, gather_flat_cluster_kernel<kShift>, config);
+}
+
+template <int kShift>
+cudaError_t launch_cluster(const float* table, const int* idx, float* out, int n, int table_size,
+                           int blk, int mode, cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr[1];
+  int max_clusters = 0;
+  cudaError_t err = cluster_config<kShift>(table_size, &config, attr, &max_clusters);
+  if (err != cudaSuccess) return err;
+  if (max_clusters < 1) return cudaErrorInvalidConfiguration;
+  const int units = ((n + 3) / 4 + blk / 4 - 1) / (blk / 4);
+  const int clusters = units < max_clusters ? units : max_clusters;
+  config.gridDim = dim3(clusters << kShift);
+  config.stream = stream;
+  return cudaLaunchKernelEx(&config, gather_flat_cluster_kernel<kShift>, table, table_size, idx,
+                            out, n, blk, mode);
+}
+
 }  // namespace
 
 extern "C" {
@@ -122,30 +305,36 @@ int gg_gather_flat_l2(const float* table, const int* idx, float* out, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-int gg_gather_flat_cluster(const float* table, const int* idx, float* out, long long n,
-                           int table_size, int n_clusters, long long blk, int mode,
-                           void* stream) {
-  const int slice = (table_size + kClusterSize - 1) / kClusterSize;
-  const size_t smem = static_cast<size_t>(slice) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_flat_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+// cluster: 4, 8 or 16 blocks; blk: a positive multiple of 4; table and idx
+// 16-byte aligned; n < 2^31 (the wrapper checks all of these).
+int gg_gather_flat_cluster(const float* table, const int* idx, float* out, int n,
+                           int table_size, int cluster, int blk, int mode, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(n_clusters * kClusterSize);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = static_cast<cudaStream_t>(stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (cluster) {
+    case 4: err = launch_cluster<2>(table, idx, out, n, table_size, blk, mode, s); break;
+    case 8: err = launch_cluster<3>(table, idx, out, n, table_size, blk, mode, s); break;
+    case 16: err = launch_cluster<4>(table, idx, out, n, table_size, blk, mode, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Writes to *clusters how many clusters of `cluster` blocks the card holds at
+// once for a table of table_size entries (what gg_gather_flat_cluster
+// launches at most); launches nothing.
+int gg_gather_cluster_grid(int table_size, int cluster, int* clusters) {
+  cudaLaunchConfig_t config;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kClusterSize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, gather_flat_cluster_kernel, table, idx, out, n, table_size,
-                           slice, blk, mode);
+  cudaError_t err;
+  switch (cluster) {
+    case 4: err = cluster_config<2>(table_size, &config, attr, clusters); break;
+    case 8: err = cluster_config<3>(table_size, &config, attr, clusters); break;
+    case 16: err = cluster_config<4>(table_size, &config, attr, clusters); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,8 @@ SOURCES = {
     "composite_fwd": {"gg_composite_fwd": "pppiiiipppppp"},
     "composite_bwd": {"gg_composite_bwd": "ppppppppiiiipp"},
     "probe_gather": {"gg_gather_flat_l2": "ppplp",
-                     "gg_gather_flat_cluster": "pppliilip",
+                     "gg_gather_flat_cluster": "pppiiiiip",
+                     "gg_gather_cluster_grid": "iip",
                      "gg_gather_axis0": "pppiip",
                      "gg_gather_axis1": "pppiiip"},
     "probe_composite": {"gg_probe_null": "pppiiiippppppp",

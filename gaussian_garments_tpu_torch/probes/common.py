@@ -34,6 +34,7 @@ class Entry:
     tolerance: str
     nbytes: int                   # bytes the function must move
     evals: int = 0                # special-function evaluations it must do
+    walked_evals: int = 0         # those its walk makes, where they differ
     library: Optional[Callable[[], object]] = None
     shape: str = ""
 
@@ -41,9 +42,11 @@ class Entry:
     def source(self) -> str:
         return f"gaussian_garments_tpu_torch/csrc/{KERNELS[self.name][0]}.cu"
 
-    def bound(self) -> Tuple[float, str]:
-        """(least ms the card could take, "bytes" or "operations")."""
-        t_bytes, t_ops = self.nbytes / HBM_BYTES_S, self.evals / SFU_OPS_S
+    def bound(self, evals: Optional[int] = None) -> Tuple[float, str]:
+        """(least ms the card could take, "bytes" or "operations"), for
+        ``evals`` special-function evaluations (default: ``self.evals``)."""
+        t_bytes = self.nbytes / HBM_BYTES_S
+        t_ops = (self.evals if evals is None else evals) / SFU_OPS_S
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -93,12 +96,17 @@ def report(entries, device: torch.device, reps: int, extra=None) -> list:
             row["plain_ms"] = cuda_ms(e.plain, 1)
             row["library_ms"] = cuda_ms(e.library, reps) if e.library else None
         row["bound_ms"], row["bound_by"] = e.bound()
+        walked = ""
+        if e.walked_evals:
+            row["walked_bound_ms"] = e.bound(e.walked_evals)[0]
+            walked = (f" ({e.evals} evaluations; walked {e.walked_evals}: "
+                      f"{row['walked_bound_ms']:.4f} ms)")
         rows.append(row)
         times = (f"{row['ms']:9.4f} ms (CUDA events, mean of {reps})" if on_card
                  else "ms not measured (cpu)")
         lib = f", library {row['library_ms']:.4f} ms" if on_card and e.library else ""
         print(f"{e.row:>6} {e.name:<20} ok={ok} max|err|={err:.3g}  {times}, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}{lib}  [{e.shape}]",
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}{walked}{lib}  [{e.shape}]",
               flush=True)
         if extra:
             extra(e, row)

@@ -10,18 +10,26 @@ Counterpart of the TPU probe ``scripts/profile_kernel_null.py`` at its scene
   splats (all 12 features; the full kernel stages 10 and a warp mask), no
   per-pixel work; it writes the tile's empty outputs and
   one float64 checksum per tile (the sum of the staged features);
-- ``alpha_only``: the per-pixel loop with the forward's gates but no colour,
+- ``alpha_only``: the forward's per-warp walk with its gates but no colour,
   depth, transmittance or early stop; it writes Σα and Σlog1p(−α) per pixel
-  (the counterpart of ``nomxu_kernel``).
+  (the counterpart of ``nomxu_kernel``). Like the forward, a warp of 8×4
+  pixels walks only the splats whose warp box reaches it (``warp_hits``), and
+  each pixel sums the same terms in the same order as a walk over every pair
+  of its tile.
 
     python -m gaussian_garments_tpu_torch.probes.composite_null [--device cuda] [--reps 20]
 
-Each row prints its ms, its share of ``full`` and its bound.
+Each row prints its ms, its share of ``full`` and its bound. ``alpha_only``'s
+bound counts the terms its function sums (``gated_terms``: every pair and
+pixel that passes the gates), one special-function evaluation each; the
+bound of every pair of a tile at each of its pixels (what a walk without the
+warp cull evaluates) is printed beside it.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import types
 from typing import List, Optional, Sequence
 
 import torch
@@ -30,6 +38,8 @@ from gaussian_garments_tpu_torch.ops import tiles
 from gaussian_garments_tpu_torch.ops.cuda import launch, route, stream
 from gaussian_garments_tpu_torch.ops.rasterizer_ref import ALPHA_EPS, ALPHA_MAX
 from gaussian_garments_tpu_torch.probes.common import Entry, max_abs, report
+
+WARP_W, WARP_H = 8, 4  # a warp's sub-tile of pixels (csrc/splat_tile.cuh)
 
 REPLACES = {"null": "scripts/profile_kernel_null.py:81",
             "alpha_only": "scripts/profile_kernel_null.py:93",
@@ -89,12 +99,37 @@ def probe_null(pairs: tiles.TilePairs, *, image_height: int, image_width: int):
         pairs, image_height=image_height, image_width=image_width)
 
 
-def alpha_only_plain(pairs: tiles.TilePairs, *, image_height: int,
-                     image_width: int) -> torch.Tensor:
-    """(2, H, W): Σα and Σlog1p(−α) over every pair of the pixel's tile that
-    passes the forward's gates, summed in pair order like the kernel. A loop
-    over the per-tile slot k, vectorised over (tiles × 512 pixels), tiles in
-    order of decreasing pair count."""
+def warp_boxes(pairs: tiles.TilePairs) -> torch.Tensor:
+    """(N, 2) warp-box half-widths of each splat, from its features as the
+    kernels stage them (``tiles.warp_extents``); -1 for a bad conic."""
+    f = pairs.feats
+    return tiles.warp_extents(tiles.ellipse(types.SimpleNamespace(conic=f[:, 2:5],
+                                                                  opacity=f[:, 5])))
+
+
+def warp_hits(means: torch.Tensor, box: torch.Tensor, ox: torch.Tensor,
+              oy: torch.Tensor) -> torch.Tensor:
+    """(M, 16) bool: whether warp w = 2·row + column of the tile whose top-left
+    pixel is (ox, oy) holds a pixel of the warp box of half-widths ``box``
+    (M, 2) centred on ``means`` (M, 2), as ``csrc/splat_tile.cuh::warp_mask``
+    decides; every warp where the box is -1 (a bad conic)."""
+    dev = means.device
+    x0 = ox[:, None] + WARP_W * torch.arange(2, device=dev)
+    y0 = oy[:, None] + WARP_H * torch.arange(8, device=dev)
+    mx, my, ex, ey = means[:, 0:1], means[:, 1:2], box[:, 0:1], box[:, 1:2]
+    cols = (mx - ex <= (x0 + WARP_W - 1).float()) & (mx + ex >= x0.float())
+    rows = (my - ey <= (y0 + WARP_H - 1).float()) & (my + ey >= y0.float())
+    bad = ~((ex >= 0) & (ey >= 0))
+    return (rows[:, :, None] & cols[:, None, :]).reshape(-1, 16) | bad
+
+
+def _gated(pairs: tiles.TilePairs, warp_cull: bool):
+    """The walk that the plain versions share: a loop over the per-tile slot
+    k, vectorised over (tiles × 512 pixels, row-major in the tile), tiles in
+    order of decreasing pair count. Yields (order, m, al, use, px, py) per
+    slot: the first m tiles of ``order`` hold a k-th pair; ``use`` (m, 512)
+    is where it passes the gates (and, with ``warp_cull``, where its warp box
+    reaches the pixel's warp of 8×4 pixels)."""
     feats, ranges = pairs.feats, pairs.ranges.to(torch.int64)
     dev = feats.device
     tx, ty = pairs.tiles_x, pairs.tiles_y
@@ -103,22 +138,41 @@ def alpha_only_plain(pairs: tiles.TilePairs, *, image_height: int,
     starts = ranges[:-1][order]
     counts_host = counts[order].tolist()
     p = torch.arange(tiles.PIX, device=dev)
-    px = ((order % tx)[:, None] * tiles.TILE_W + (p % tiles.TILE_W)[None, :]).to(torch.float32)
-    py = ((order // tx)[:, None] * tiles.TILE_H + (p // tiles.TILE_W)[None, :]).to(torch.float32)
-    nt = tx * ty
-    sum_alpha = torch.zeros((nt, tiles.PIX), dtype=torch.float32, device=dev)
-    sum_log = torch.zeros_like(sum_alpha)
-    m = nt
+    ox, oy = (order % tx) * tiles.TILE_W, (order // tx) * tiles.TILE_H
+    px = (ox[:, None] + (p % tiles.TILE_W)[None, :]).to(torch.float32)
+    py = (oy[:, None] + (p // tiles.TILE_W)[None, :]).to(torch.float32)
+    warp_of_pixel = (p // tiles.TILE_W // WARP_H) * 2 + (p % tiles.TILE_W) // WARP_W
+    box = warp_boxes(pairs) if warp_cull else None
+    m = tx * ty
     for k in range(counts_host[0] if counts_host else 0):
         while counts_host[m - 1] <= k:
             m -= 1
-        f = feats[pairs.pair_splat[starts[:m] + k].to(torch.int64)]
+        splat = pairs.pair_splat[starts[:m] + k].to(torch.int64)
+        f = feats[splat]
         col = lambda i: f[:, i:i + 1]
         dx = col(0) - px[:m]
         dy = col(1) - py[:m]
         power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
         al = torch.clamp(col(5) * torch.exp(power), max=ALPHA_MAX)
         use = (power <= 0.0) & (al >= ALPHA_EPS)
+        if box is not None:
+            use &= warp_hits(f[:, :2], box[splat], ox[:m], oy[:m])[:, warp_of_pixel]
+        yield order, m, al, use, px[:m], py[:m]
+
+
+def alpha_only_plain(pairs: tiles.TilePairs, *, image_height: int, image_width: int,
+                     warp_cull: bool = False) -> torch.Tensor:
+    """(2, H, W): Σα and Σlog1p(−α) over every pair of the pixel's tile that
+    passes the forward's gates, summed in pair order like the kernel.
+    ``warp_cull`` skips, as the kernel does, the pairs whose warp box misses
+    the pixel's warp: the sums stay the same, bit for bit, since every
+    skipped pair fails the gates there."""
+    tx, ty = pairs.tiles_x, pairs.tiles_y
+    sum_alpha = torch.zeros((tx * ty, tiles.PIX), dtype=torch.float32,
+                            device=pairs.feats.device)
+    sum_log = torch.zeros_like(sum_alpha)
+    order = None
+    for order, m, al, use, _, _ in _gated(pairs, warp_cull):
         sum_alpha[:m] += torch.where(use, al, torch.zeros_like(al))
         sum_log[:m] += torch.where(use, torch.log1p(-al), torch.zeros_like(al))
 
@@ -127,7 +181,20 @@ def alpha_only_plain(pairs: tiles.TilePairs, *, image_height: int,
         full[order] = x
         return tiles._untile(full, tx, ty, image_height, image_width)
 
+    if order is None:
+        return sum_alpha.new_zeros((2, image_height, image_width))
     return torch.stack([image(sum_alpha), image(sum_log)])
+
+
+def gated_terms(pairs: tiles.TilePairs, h: int, w: int) -> int:
+    """The terms that ``alpha_only`` sums: (pair, pixel inside the image) of
+    its tile that pass the gates (power ≤ 0, α ≥ 1/255). They need one
+    special-function evaluation each, and do not depend on how the kernel
+    walks."""
+    total = 0
+    for _, _, _, use, px, py in _gated(pairs, False):
+        total += int((use & (px < w) & (py < h)).sum())
+    return total
 
 
 def alpha_only_cuda(pairs: tiles.TilePairs, *, image_height: int,
@@ -183,12 +250,25 @@ def _compare_alpha(got, want):
     return err, ok
 
 
+def warp_lanes(pairs: tiles.TilePairs) -> int:
+    """Lane evaluations of the per-warp walk before any early stop: 32 for
+    each (pair, warp of its tile that the pair's warp box reaches)."""
+    counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(counts.numel(), device=counts.device), counts)
+    splat = pairs.pair_splat.long()
+    hit = warp_hits(pairs.feats[splat, :2], warp_boxes(pairs)[splat],
+                    (tile % pairs.tiles_x) * tiles.TILE_W, (tile // pairs.tiles_x) * tiles.TILE_H)
+    return 32 * int(hit.sum())
+
+
 def entries(pairs: tiles.TilePairs, h: int, w: int) -> List[Entry]:
-    """The three rows at the scene of ``pairs``."""
+    """The two probe rows at the scene of ``pairs``. ``alpha_only``'s bound
+    counts its gate-passing terms; its walked bound, every pair of a tile at
+    each of its pixels inside the image."""
     n, p = pairs.feats.shape[0], int(pairs.ranges[-1])
     t = pairs.ranges.numel()
     counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
-    evals = int((counts * inside_pixels(pairs, h, w)).sum())
+    walked = int((counts * inside_pixels(pairs, h, w)).sum())
     pair_bytes = n * 48 + p * 4 + t * 4
     kw = dict(image_height=h, image_width=w)
     shape = f"{n} splats, {p} pairs, {t - 1} tiles, {w}x{h}"
@@ -201,7 +281,7 @@ def entries(pairs: tiles.TilePairs, h: int, w: int) -> List[Entry]:
               wrapper=alpha_only_cuda, run=lambda: alpha_only(pairs, **kw),
               plain=lambda: alpha_only_plain(pairs, **kw), compare=_compare_alpha,
               tolerance="1e-5 x max per channel", nbytes=pair_bytes + h * w * 4 * 2,
-              evals=evals, shape=shape),
+              evals=gated_terms(pairs, h, w), walked_evals=walked, shape=shape),
     ]
 
 
@@ -222,7 +302,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     pin_full_f32()
     _, pairs = bench_scene(device)
     print(f"bench.py scene: {pairs.feats.shape[0]} splats, {int(pairs.ranges[-1])} pairs, "
-          f"{pairs.tiles_x * pairs.tiles_y} tiles", flush=True)
+          f"{pairs.tiles_x * pairs.tiles_y} tiles; alpha_only walks {warp_lanes(pairs)} lane "
+          f"evaluations after the warp cull, {tiles.PIX * int(pairs.ranges[-1])} without it",
+          flush=True)
     full_ms = None
     if device.type == "cuda":
         full_ms = cuda_ms(lambda: tiles.composite_tiles_cuda(

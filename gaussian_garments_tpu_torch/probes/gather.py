@@ -9,10 +9,11 @@ entry table in blocks of 1,280), at their shapes and with their seeds.
 
 A 606–655 KB table does not fit one block's 227 KB of shared memory, so the
 flat gather runs as two kernels (``csrc/probe_gather.cu``): ``flat_l2``
-reads the table through L2; ``flat_cluster`` stages it across a cluster of
-4 blocks' shared memory and gathers through distributed shared memory, the
-counterpart of the VMEM-resident table. Its time is reported with the
-staging and without it.
+reads the table through L2; ``flat_cluster`` stages it across the shared
+memory of a cluster of 4, 8 or 16 blocks (its float4 groups dealt to the
+ranks in turn, ``cluster_slices``) and gathers through distributed shared
+memory, the counterpart of the VMEM-resident table. On the card the probe
+times it at every cluster size, with the staging and without it.
 
     python -m gaussian_garments_tpu_torch.probes.gather [--device cuda] [--reps 20] \
         [--rows 3 4C 5 4A 4B]
@@ -33,8 +34,8 @@ import torch
 from gaussian_garments_tpu_torch.ops.cuda import check_tensor, launch, route, stream
 from gaussian_garments_tpu_torch.probes.common import Entry, cuda_ms, max_abs, report
 
-CLUSTER = 4
-N_CLUSTERS = 33            # 132 SMs / 4
+CLUSTER_SIZES = (4, 8, 16)  # the cluster sizes the kernel is built for
+CLUSTER = 4                 # the default: the fastest of them at every flat row on an H100
 SMEM_BLOCK_BYTES = 232_448
 
 # row -> (table rows, table lanes, indices, indices per block, TPU kernel)
@@ -79,27 +80,81 @@ def gather_flat_l2_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_flat_l2_cuda.launches = 0
 
 
-def gather_flat_cluster_cuda(table: torch.Tensor, idx: torch.Tensor, *, blk: int,
-                             stage: bool = True) -> torch.Tensor:
-    """Launch ``flat_cluster``: 33 clusters of 4 blocks each hold the table in
-    their shared memory and walk the index blocks of ``blk`` indices.
-    ``stage=False`` skips the staging (the output is then undefined): the
-    gathers alone, for timing."""
-    dev = _check_flat(table, idx)
-    slice_bytes = -(-table.numel() // CLUSTER) * 4
+def _slots(table_size: int, cluster: int) -> int:
+    """float4 groups of the table that each rank of a cluster holds."""
+    groups = -(-table_size // 4)
+    return -(-groups // cluster)
+
+
+def cluster_slices(table: torch.Tensor, cluster: int) -> torch.Tensor:
+    """(cluster, 4·slots) float32: the slice of the table that each rank of a
+    cluster holds in ``flat_cluster``. The table's float4 groups (zero-padded
+    to whole groups) are dealt to the ranks in turn, group q to rank
+    q mod cluster, which keeps it at slot q div cluster; a rank's slice is
+    zero-padded to ``slots`` = ceil(groups / cluster)."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    flat = table.reshape(-1)
+    slots = _slots(flat.numel(), cluster)
+    padded = flat.new_zeros(slots * cluster * 4)
+    padded[:flat.numel()] = flat
+    return padded.reshape(slots, cluster, 4).transpose(0, 1).reshape(cluster, slots * 4)
+
+
+def cluster_address(idx: torch.Tensor, cluster: int):
+    """(owner, offset) of each index in ``cluster_slices``: rank
+    (j >> 2) & (cluster − 1), float offset ((j >> (2 + log2 cluster)) << 2) | (j & 3),
+    as the kernel computes them."""
+    shift = cluster.bit_length() - 1
+    j = idx.reshape(-1).long()
+    return (j >> 2) & (cluster - 1), ((j >> (2 + shift)) << 2) | (j & 3)
+
+
+def _check_cluster_args(table, idx, blk, cluster):
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    if blk <= 0 or blk % 4:
+        raise ValueError(f"blk must be a positive multiple of 4, got {blk}")
+    if idx.numel() >= 2 ** 31 or table.numel() >= 2 ** 31:
+        raise ValueError("flat_cluster takes fewer than 2^31 indices and table entries")
+    if table.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError("flat_cluster reads the table and the indices as 16-byte vectors: "
+                         "both must be 16-byte aligned")
+    slice_bytes = _slots(table.numel(), cluster) * 16
     if slice_bytes > SMEM_BLOCK_BYTES:
         raise ValueError(f"a {table.numel()}-entry table needs {slice_bytes} B of shared "
-                         f"memory a block; a block has {SMEM_BLOCK_BYTES}")
+                         f"memory a block in clusters of {cluster}; a block has "
+                         f"{SMEM_BLOCK_BYTES}")
+
+
+def gather_flat_cluster_cuda(table: torch.Tensor, idx: torch.Tensor, *, blk: int,
+                             cluster: int = CLUSTER, stage: bool = True) -> torch.Tensor:
+    """Launch ``flat_cluster``: clusters of ``cluster`` blocks, as many as the
+    card holds at once, each hold the table in their shared memory and take
+    the index stream's units of ``blk`` indices in turn. ``stage=False``
+    skips the staging (the output is then undefined): the gathers alone,
+    for timing. A launch the card refuses raises."""
+    dev = _check_flat(table, idx)
+    _check_cluster_args(table, idx, blk, cluster)
     out = torch.empty(idx.numel(), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         launch("probe_gather", "gg_gather_flat_cluster", table.data_ptr(), idx.data_ptr(),
-               out.data_ptr(), idx.numel(), table.numel(), N_CLUSTERS, blk, 0 if stage else 1,
+               out.data_ptr(), idx.numel(), table.numel(), cluster, blk, 0 if stage else 1,
                stream(dev))
     gather_flat_cluster_cuda.launches += 1
     return out
 
 
 gather_flat_cluster_cuda.launches = 0
+
+
+def cluster_grid(table: torch.Tensor, cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks ``flat_cluster`` launches at
+    most for ``table`` on its card (``cudaOccupancyMaxActiveClusters``)."""
+    out = torch.zeros(1, dtype=torch.int32)
+    with torch.cuda.device(table.device):
+        launch("probe_gather", "gg_gather_cluster_grid", table.numel(), cluster, out.data_ptr())
+    return int(out)
 
 
 def gather_axis_plain(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
@@ -235,11 +290,22 @@ def entries(device, inputs: Optional[dict] = None, rows: Sequence[str] = ROWS) -
     return out
 
 
-def unstaged_ms(inputs: dict, row: str, reps: int = 20) -> float:
-    """ms of ``flat_cluster``'s gathers at ``row`` without the staging."""
+def cluster_sweep(inputs: dict, row: str, reps: int = 20) -> dict:
+    """``flat_cluster`` at ``row`` at every cluster size it is built for:
+    {size: {"clusters", "exact", "ms", "ms_unstaged"}}, the times by CUDA
+    events (mean of ``reps``), "exact" whether the staged output equals
+    ``table[idx]``."""
     table, idx = inputs[row]
-    return cuda_ms(lambda: gather_flat_cluster_cuda(table, idx, blk=FLAT_ROWS[row][3],
-                                                    stage=False), reps)
+    blk = FLAT_ROWS[row][3]
+    want = gather_flat_plain(table, idx)
+    out = {}
+    for c in CLUSTER_SIZES:
+        run = lambda stage: gather_flat_cluster_cuda(table, idx, blk=blk, cluster=c, stage=stage)
+        exact = bool(torch.equal(run(True), want))
+        out[c] = {"clusters": cluster_grid(table, c), "exact": exact,
+                  "ms": cuda_ms(lambda: run(True), reps),
+                  "ms_unstaged": cuda_ms(lambda: run(False), reps)}
+    return out
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -261,9 +327,13 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
 
     def extra(e, row):
         if e.name == "gather_flat_cluster" and device.type == "cuda":
-            row["ms_unstaged"] = unstaged_ms(inputs, e.row, args.reps)
-            print(f"{'':>6} {'':<20} without the staging: {row['ms_unstaged']:.4f} ms",
-                  flush=True)
+            row["sweep"] = cluster_sweep(inputs, e.row, args.reps)
+            row["ms_unstaged"] = row["sweep"][CLUSTER]["ms_unstaged"]
+            row["ok"] = row["ok"] and all(s["exact"] for s in row["sweep"].values())
+            for c, s in row["sweep"].items():
+                print(f"{'':>6} {'':<20} clusters of {c:>2} ({s['clusters']} of them): "
+                      f"{s['ms']:.4f} ms, without the staging {s['ms_unstaged']:.4f} ms, "
+                      f"exact={s['exact']}", flush=True)
 
     return report(es, device, args.reps, extra)
 

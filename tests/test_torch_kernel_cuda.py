@@ -1,5 +1,6 @@
 """The CUDA splat compositor on the card, forward and backward, held against
-its plain PyTorch versions and the exact oracle. Every test here needs an
+its plain PyTorch versions and the exact oracle; the probe kernels against
+their plain versions. Every test here needs an
 NVIDIA GPU with nvcc and skips without one; run them on the card with
 
     python -m pytest --noconftest tests/test_torch_kernel_cuda.py -q
@@ -227,3 +228,35 @@ def test_composite_probe_kernels_match_plain(dev):
         _held(e)
     for e in grid_overhead.entries(pairs, build_worklist(pairs.ranges)):
         _held(e)
+
+
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("row", ["3", "4C", "5"])
+def test_gather_cluster_kernel_exact_at_every_size(dev, row, cluster):
+    """``flat_cluster`` at every cluster size it is built for equals
+    ``table[idx]`` bit for bit, and its launches count."""
+    from gaussian_garments_tpu_torch.probes import gather
+
+    table, idx = gather.make_inputs(dev)[row]
+    before = gather.gather_flat_cluster_cuda.launches
+    got = gather.gather_flat_cluster_cuda(table, idx, blk=gather.FLAT_ROWS[row][3],
+                                          cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_flat_plain(table, idx))
+    assert gather.gather_flat_cluster_cuda.launches == before + 1
+    assert gather.cluster_grid(table, cluster) >= 1
+
+
+def test_alpha_only_kernel_matches_plain_on_cull_scene(dev):
+    """``probe_alpha_only`` on ``make_cull_scene``, whose warp corners and
+    bad conics are the cases its warp mask must get right: within 1e-5 ×
+    max per channel of its plain version (the 20K-splat scene is in
+    ``test_composite_probe_kernels_match_plain``)."""
+    from gaussian_garments_tpu_torch.probes import composite_null
+
+    proj = make_cull_scene(3000, 4, width=W, height=H, device=dev)
+    pairs = tiles.bin_pairs(proj, image_width=W, image_height=H)
+    assert bool((tiles.warp_extents(tiles.ellipse(proj))[:, 0] < 0).any())
+    entry = composite_null.entries(pairs, H, W)[1]
+    assert entry.name == "probe_alpha_only"
+    _held(entry)

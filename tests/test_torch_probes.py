@@ -117,6 +117,47 @@ def test_gather_kernels_take_only_cuda_tensors():
         gather.gather_flat(table, idx, variant="vmem")
 
 
+@pytest.fixture(scope="module")
+def flat_inputs():
+    return gather.make_inputs("cpu")
+
+
+@pytest.mark.parametrize("cluster", gather.CLUSTER_SIZES)
+@pytest.mark.parametrize("row", list(gather.FLAT_ROWS))
+def test_cluster_layout_gathers_exactly(flat_inputs, row, cluster):
+    """``flat_cluster``'s layout (``cluster_slices``, ``cluster_address``):
+    gathering through each index's (owner, offset) equals ``table[idx]`` bit
+    for bit at the TPU scripts' rows; every rank holds an equal slice."""
+    table, idx = flat_inputs[row]
+    slices = gather.cluster_slices(table, cluster)
+    owner, offset = gather.cluster_address(idx, cluster)
+    assert slices.shape[0] == cluster and slices.shape[1] % 4 == 0
+    assert slices.shape[1] * cluster - table.numel() < 4 * cluster
+    assert int(owner.max()) == cluster - 1 and int(offset.max()) < slices.shape[1]
+    np.testing.assert_array_equal(slices[owner, offset].numpy(),
+                                  gather.gather_flat_plain(table, idx).numpy())
+
+
+@pytest.mark.parametrize("cluster", gather.CLUSTER_SIZES)
+def test_cluster_layout_ragged_table(cluster):
+    """A table whose size is no multiple of 4 × cluster (the last float4
+    group and the last ranks' slices are padded), indices 0 and N − 1
+    included: still ``table[idx]`` bit for bit, and the padding is zero."""
+    n = 4 * cluster * 37 + 4 * 3 + 2
+    rng = np.random.RandomState(cluster)
+    table = torch.from_numpy(rng.randn(n).astype(np.float32))
+    idx = torch.from_numpy(np.concatenate([[0, n - 1], rng.randint(0, n, 5000),
+                                           np.arange(n)]).astype(np.int32))
+    slices = gather.cluster_slices(table, cluster)
+    owner, offset = gather.cluster_address(idx, cluster)
+    np.testing.assert_array_equal(slices[owner, offset].numpy(), table[idx.long()].numpy())
+    # every entry has its own place, and the rest is zero padding
+    assert len(set((owner * slices.shape[1] + offset).tolist())) == n
+    assert int((slices == 0).sum()) == slices.numel() - n + int((table == 0).sum())
+    with pytest.raises(ValueError, match="cluster"):
+        gather.cluster_slices(table, 6)
+
+
 def test_gather_entries_bound_by_bytes():
     """Each entry's bound counts the table once and 8 B per index."""
     es = gather.entries("cpu")
@@ -265,15 +306,53 @@ def test_alpha_only_plain_matches_nomxu_body(scene, side):
                                    atol=1e-5 * float(np.abs(want[c]).max()))
 
 
+@pytest.mark.parametrize("scene_name", ["probe", "cull"])
+def test_alpha_only_warp_cull_is_bit_exact(scene, scene_name):
+    """The plain ``alpha_only`` with the kernel's warp cull (a pixel skips
+    a pair whose warp box, ``tiles.warp_extents``, misses its 8×4-pixel
+    warp) equals the walk over every pair bit for bit: on the probe scene
+    and on ``make_cull_scene`` (contours past 3σ, centres on warp corners,
+    bad conics), where the cull skips pairs."""
+    from gaussian_garments_tpu_torch.data.synthetic import make_cull_scene
+
+    if scene_name == "probe":
+        pairs, h, w = scene["pairs"], H, W
+    else:
+        h = w = 256
+        pairs = tiles.bin_pairs(make_cull_scene(2000, 5, width=w, height=h, device="cpu"),
+                                image_width=w, image_height=h)
+        assert bool((composite_null.warp_boxes(pairs)[:, 0] < 0).any())
+    full = composite_null.alpha_only_plain(pairs, image_height=h, image_width=w)
+    culled = composite_null.alpha_only_plain(pairs, image_height=h, image_width=w,
+                                             warp_cull=True)
+    assert composite_null.warp_lanes(pairs) < tiles.PIX * int(pairs.ranges[-1])
+    assert float(full[0].max()) > 1.0
+    assert torch.equal(full, culled)
+
+
 def test_composite_entries_bounds(scene):
-    """``alpha_only`` is bound by one expf per pixel-pair evaluation: every
-    pair of a tile at each of its pixels inside the image."""
+    """``alpha_only``'s bound counts the terms its function sums: every
+    (pair, pixel inside the image) of a tile that passes the gates, held
+    against a count tile by tile; its walked count is every pair of a tile
+    at each of its pixels inside the image."""
     pairs = scene["pairs"]
     null, alpha = composite_null.entries(pairs, H, W)
     counts = (pairs.ranges[1:] - pairs.ranges[:-1]).long()
     inside = composite_null.inside_pixels(pairs, H, W)
     assert int(inside.sum()) == H * W
-    assert alpha.evals == int((counts * inside).sum())
+    assert alpha.walked_evals == int((counts * inside).sum())
+    want = 0
+    p = torch.arange(tiles.PIX)
+    for t in range(counts.numel()):
+        lo, hi = int(pairs.ranges[t]), int(pairs.ranges[t + 1])
+        f = pairs.feats[pairs.pair_splat[lo:hi].long()]
+        px = ((t % pairs.tiles_x) * tiles.TILE_W + p % tiles.TILE_W).float()
+        py = ((t // pairs.tiles_x) * tiles.TILE_H + p // tiles.TILE_W).float()
+        dx, dy = f[:, 0:1] - px, f[:, 1:2] - py
+        power = -0.5 * (f[:, 2:3] * dx * dx + f[:, 4:5] * dy * dy) - f[:, 3:4] * dx * dy
+        al = torch.clamp(f[:, 5:6] * torch.exp(power), max=composite_null.ALPHA_MAX)
+        want += int(((power <= 0) & (al >= composite_null.ALPHA_EPS) & (px < W) & (py < H)).sum())
+    assert 0 < alpha.evals == want < alpha.walked_evals
     assert null.evals == 0 and null.bound()[1] == "bytes"
 
 
