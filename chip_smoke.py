@@ -26,7 +26,10 @@ plain version):
    gaussian_garments_tpu_torch.probes.{gather,composite_null,grid_overhead}``:
    the gather kernels at every row of the TPU scripts' table (one run per
    row), ``probe_null`` and ``probe_alpha_only`` beside ``composite_fwd`` at
-   ``bench.py``'s scene, the grid-overhead ladder a–e over its work list.
+   ``bench.py``'s scene, the grid-overhead ladder a–e over its work list
+   (each variant's grid printed, and its writes of output tiles to global
+   memory as the kernel counts them: one per tile that holds pairs, and for
+   d one write of tile 0).
    Each kernel is held against its plain version (gathers exact, checksums
    1e-6 × max, ``alpha_only`` 1e-5 × max) and timed (CUDA events, mean of 20)
    beside its plain version, its library call where there is one, and its
@@ -701,7 +704,21 @@ def phase_probes(torch):
             rows.append(r)
         print(f"{what}: {time.perf_counter() - t0:.1f} s; launches " + ", ".join(
             f"{name} {w.launches}" for name, w in module.WRAPPERS.items() if w.launches))
+        if module is grid_overhead:
+            check_ladder_writes(out)
     return rows
+
+
+def check_ladder_writes(out):
+    """Each ladder variant's grid, and its writes of output tiles to global
+    memory as the kernel counted them: one per tile that holds pairs, and
+    for d one write of tile 0 a launch."""
+    for r in out["rows"]:
+        want = 1 if r["row"] == "d" else out["first_items"]
+        print(f"grid_{r['row']}: grid {r['grid']} blocks of 256 threads for {out['n_items']} "
+              f"items; {r['tile_writes']} output tiles written to global memory (want {want})")
+        check(r["tile_writes"] == want, f"grid_{r['row']} wrote {r['tile_writes']} output tiles "
+                                        f"to global memory, want {want}")
 
 
 def phase_s3(torch, dev, out_root):

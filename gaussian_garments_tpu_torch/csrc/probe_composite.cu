@@ -30,24 +30,52 @@
 //                     pixel sums the same terms in the same order as a walk
 //                     over every pair, bit for bit.
 //   grid_ladder       null blocks over the (tile x 256-pair chunk) work list
-//                     of the TPU kernel, one block per item, 256 threads:
-//                     variant 0 (a) reads 5 separate metadata arrays, stages
-//                     its chunk's features (pairs outside its tile's range
-//                     masked), zeroes its tile's (8, 512) output when k == 0
-//                     and writes one checksum per item; 1 (b) reads the item
-//                     metadata as one int4 table and the tile ranges as int2;
-//                     2 (c) stages nothing (its checksum is the count of the
-//                     item's valid pairs); 3 (d) zeroes tile 0 in every block
-//                     (same values, a benign race); 4 (e) one block per two
-//                     items.
+//                     of the TPU kernel, 256 threads a block, as a
+//                     persistent walk: as many blocks as the card holds at
+//                     once (occupancy x SMs, at most one per step); block b
+//                     takes steps b, b + grid, ... A step is one item (two,
+//                     2j and 2j + 1, for e). While step s is summed and its
+//                     tile zeroed, step s + grid's chunk is in flight into
+//                     the other half of a double buffer (16-byte cp.async,
+//                     indirect through pair_splat, one commit group a step)
+//                     and step s + 2 grid's metadata is read into
+//                     registers in three dependent rounds (item, its tile's
+//                     range, the splats of the pairs) spread over the
+//                     iteration's work. A warp's copies cover whole 48-byte
+//                     feature rows. One float64 checksum per
+//                     item, the feature sum of its pairs inside its tile's
+//                     range, reduced by warp shuffles.
+//                     Variant 0 (a) reads 5 separate metadata arrays,
+//                     stages its chunk and zeroes its tile's (8, 512) output
+//                     when k == 0, four streaming float4 stores a thread;
+//                     1 (b) reads the item metadata as one int4 table and the
+//                     tile ranges as int2; 2 (c) stages nothing (its
+//                     checksum is the count of the item's valid pairs);
+//                     3 (d) has the TPU kern_d's fixed output block: a block
+//                     whose item has k == 0 zeroes a shared-memory copy of
+//                     the tile (the counterpart of the VMEM block), and tile 0
+//                     goes to global memory once a launch, from the block
+//                     that takes the first item with k == 0 (item 0), at the
+//                     end of its walk. d is the ladder with no output
+//                     write-backs: a - d is what a-c pay per tile.
+//                     4 (e) takes two items a step, both chunks in one
+//                     cp.async group. The TPU's kern_e reads the tile and k
+//                     of the even item only and drops an odd last item
+//                     (profile_grid_overhead.py:170-175); here each item is
+//                     taken whole, as the plain version computes.
+//                     A launch may count its writes of output tiles to
+//                     global memory (one atomic add a block).
 //
 // What bounds them on this card: the null kernels move few bytes (features
 // once per pair, the zeroed outputs once) and do no arithmetic, so they
 // measure block scheduling and staging latency, which is the point. The
-// alpha_only kernel is bound by the special-function units, like
-// composite_fwd: its function needs an expf and a log1pf for each term it
-// sums; without the early stop a warp walks every pair of its tile whose
-// warp box reaches it.
+// ladder's staging reads each pair's 48-byte feature row from a random
+// place (two 32-byte sectors), so it pays the rate at which L2 serves
+// scattered sectors, not HBM bytes; a-c and e also write 16 KB per tile
+// that holds pairs. The alpha_only kernel is bound by the special-function
+// units, like composite_fwd: its function needs an expf and a log1pf for
+// each term it sums; without the early stop a warp walks every pair of its
+// tile whose warp box reaches it.
 //
 // Built with -fmad=false, so alpha_only's gates round like the plain PyTorch
 // version's separate elementwise ops.
@@ -189,77 +217,320 @@ __global__ void __launch_bounds__(kPix) probe_alpha_only_kernel(
   }
 }
 
-// Zero one (8, 512) output tile with the block's 256 threads.
-__device__ void zero_tile(float* __restrict__ out, int tile) {
-  float4* dst = reinterpret_cast<float4*>(out + static_cast<long long>(tile) * kOutRows * kPix);
+// ---------------------------------------------------------------------------
+// grid_ladder: a persistent walk of the (tile x 256-pair chunk) work list
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kChunk / 32;
+constexpr int kTileF4 = kOutRows * kPix / 4;  // float4s of one (8, 512) output tile
+constexpr int kSlotF4 = 3 * kChunk;           // float4s of one staged chunk
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// every group but the `pending` most recent of this thread's has landed
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+// Zero output tile `tile` with four streaming float4 stores a thread.
+__device__ __forceinline__ void zero_tile(float* __restrict__ out, int tile) {
+  float4* dst = reinterpret_cast<float4*>(out) + static_cast<long long>(tile) * kTileF4;
   const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = threadIdx.x; i < kOutRows * kPix / 4; i += blockDim.x) dst[i] = z;
+#pragma unroll
+  for (int r = 0; r < kTileF4 / kChunk; ++r) __stcs(dst + r * kChunk + threadIdx.x, z);
+}
+
+__device__ __forceinline__ void zero_shared_tile(float4* s_out) {
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int r = 0; r < kTileF4 / kChunk; ++r) s_out[r * kChunk + threadIdx.x] = z;
+}
+
+__device__ __forceinline__ void write_tile(float* __restrict__ out, int tile,
+                                           const float4* s_out) {
+  float4* dst = reinterpret_cast<float4*>(out) + static_cast<long long>(tile) * kTileF4;
+#pragma unroll
+  for (int r = 0; r < kTileF4 / kChunk; ++r) {
+    __stcs(dst + r * kChunk + threadIdx.x, s_out[r * kChunk + threadIdx.x]);
+  }
 }
 
 struct Item {
   int chunk, tile, k, start, count;
 };
 
-// Stage item `it`'s chunk into (s_a, s_b, s_c); returns this thread's
-// staged feature sum (0 for pairs outside the item's tile range).
-__device__ double stage_chunk(const float4* __restrict__ feats,
-                              const int* __restrict__ pair_splat, const Item& it,
-                              float4* s_a, float4* s_b, float4* s_c) {
-  const int p = it.chunk * kChunk + static_cast<int>(threadIdx.x);
-  const bool valid = p >= it.start && p < it.start + it.count;
-  if (valid) {
-    const int s = pair_splat[p];
-    s_a[threadIdx.x] = feats[3 * s];
-    s_b[threadIdx.x] = feats[3 * s + 1];
-    s_c[threadIdx.x] = feats[3 * s + 2];
+// The work list as the ladder reads it: variant b the two tables, the
+// others the five arrays.
+struct WorkList {
+  const int* chunk_of_item;
+  const int* tile_of_item;
+  const int* k_of_item;
+  const int* starts;
+  const int* counts;
+  const int4* item4;
+  const int2* seg2;
+  long long n_items;
+};
+
+// One step of the walk: kPer items from `first` on, `n` of which exist, and
+// for each the splats of the pairs whose feature pieces this thread stages
+// (-1 for a pair outside the item's tile range).
+template <int kPer>
+struct Step {
+  Item it[kPer];
+  int splat[kPer][3];
+  long long first;
+  int n;
+};
+
+// A step's metadata comes in three dependent rounds of loads: the item
+// (begin), its tile's range (range), the splats of this thread's pairs
+// (splat).
+template <int V, int kPer>
+__device__ __forceinline__ void begin_step(const WorkList& wl, long long s, long long n_steps,
+                                           Step<kPer>& st) {
+  st.first = s * kPer;
+  st.n = s < n_steps ? static_cast<int>(min(static_cast<long long>(kPer), wl.n_items - st.first))
+                     : 0;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    if (q >= st.n) continue;
+    const long long i = st.first + q;
+    if (V == 1) {
+      const int4 m = wl.item4[i];
+      st.it[q].chunk = m.x;
+      st.it[q].tile = m.y;
+      st.it[q].k = m.z;
+    } else {
+      st.it[q].chunk = wl.chunk_of_item[i];
+      st.it[q].tile = wl.tile_of_item[i];
+      st.it[q].k = wl.k_of_item[i];
+    }
+  }
+}
+
+template <int V, int kPer>
+__device__ __forceinline__ void range_step(const WorkList& wl, Step<kPer>& st) {
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    if (q >= st.n) continue;
+    if (V == 1) {
+      const int2 g = wl.seg2[st.it[q].tile];
+      st.it[q].start = g.x;
+      st.it[q].count = g.y;
+    } else {
+      st.it[q].start = wl.starts[st.it[q].tile];
+      st.it[q].count = wl.counts[st.it[q].tile];
+    }
+  }
+}
+
+// pair j of item `it`'s chunk lies in the item's tile range
+__device__ __forceinline__ bool holds(const Item& it, int j) {
+  const int p = it.chunk * kChunk + j;
+  return p >= it.start && p < it.start + it.count;
+}
+
+// A staged chunk is its pairs' feature rows end to end, 3 float4 pieces a
+// pair. Thread t stages pieces t, t + kChunk, t + 2 kChunk: piece q is part
+// q % 3 of pair q / 3, so a warp's copies cover whole 48-byte rows, ~11
+// rows (two 32-byte sectors each) for 32 pieces.
+__device__ __forceinline__ int piece(int r) { return static_cast<int>(threadIdx.x) + r * kChunk; }
+
+template <int kPer>
+__device__ __forceinline__ void splat_step(const int* __restrict__ pair_splat, Step<kPer>& st) {
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int j = piece(r) / 3;
+      st.splat[q][r] =
+          q < st.n && holds(st.it[q], j) ? pair_splat[st.it[q].chunk * kChunk + j] : -1;
+    }
+  }
+}
+
+// Start this thread's 16-byte copies of the step's pieces into `buf` (kPer
+// staged chunks of kSlotF4 pieces).
+template <int kPer>
+__device__ __forceinline__ void stage_step(const float4* __restrict__ feats,
+                                           const Step<kPer>& st, float4* buf) {
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      if (st.splat[q][r] >= 0) {
+        cp_async16(buf + q * kSlotF4 + piece(r), feats + 3LL * st.splat[q][r] + piece(r) % 3);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ double sum4(float4 a) {
+  return (static_cast<double>(a.x) + a.y) + (static_cast<double>(a.z) + a.w);
+}
+
+// The block's sums of v[0..kPer), valid in thread 0. `scratch` alternates
+// between two halves from one call to the next, so one barrier a call
+// keeps a warp from overwriting what thread 0 has not read yet.
+template <int kPer>
+__device__ __forceinline__ void block_sums(double (&v)[kPer], double* scratch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    for (int off = 16; off > 0; off >>= 1) v[q] += __shfl_down_sync(0xffffffffu, v[q], off);
+    if (lane == 0) scratch[q * kWarps + warp] = v[q];
   }
   __syncthreads();
-  return valid ? sum12(s_a[threadIdx.x], s_b[threadIdx.x], s_c[threadIdx.x]) : 0.0;
-}
-
-__global__ void __launch_bounds__(kChunk) grid_ladder_kernel(
-    const float4* __restrict__ feats, const int* __restrict__ pair_splat,
-    const int* __restrict__ chunk_of_item, const int* __restrict__ tile_of_item,
-    const int* __restrict__ k_of_item, const int* __restrict__ starts,
-    const int* __restrict__ counts, const int4* __restrict__ item4,
-    const int2* __restrict__ seg2, float* __restrict__ out, double* __restrict__ checksum,
-    long long n_items, int variant) {
-  __shared__ float4 s_a[2][kChunk];
-  __shared__ float4 s_b[2][kChunk];
-  __shared__ float4 s_c[2][kChunk];
-  __shared__ double s_red[kChunk / 32];
-
-  const int per_block = variant == 4 ? 2 : 1;
-  for (int q = 0; q < per_block; ++q) {
-    const long long i = static_cast<long long>(blockIdx.x) * per_block + q;
-    if (i >= n_items) break;
-    Item it;
-    if (variant == 1) {
-      const int4 m = item4[i];
-      const int2 g = seg2[m.y];
-      it = Item{m.x, m.y, m.z, g.x, g.y};
-    } else {
-      it.chunk = chunk_of_item[i];
-      it.tile = tile_of_item[i];
-      it.k = k_of_item[i];
-      it.start = starts[it.tile];
-      it.count = counts[it.tile];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      double total = 0.0;
+      for (int w = 0; w < kWarps; ++w) total += scratch[q * kWarps + w];
+      v[q] = total;
     }
-    double acc;
-    if (variant == 2) {
-      const int p = it.chunk * kChunk + static_cast<int>(threadIdx.x);
-      acc = __syncthreads_count(p >= it.start && p < it.start + it.count);
-    } else {
-      acc = stage_chunk(feats, pair_splat, it, s_a[q], s_b[q], s_c[q]);
-    }
-    if (it.k == 0) zero_tile(out, variant == 3 ? 0 : it.tile);
-    const double total = variant == 2 ? acc : block_sum(acc, s_red);
-    if (threadIdx.x == 0) checksum[i] = total;
   }
 }
 
-int blocks_for(long long n, int per_block) {
-  return static_cast<int>((n + per_block - 1) / per_block);
+// Variant V (0..4 = a..e). Block b walks steps b, b + grid, ...; a step is
+// one item (two for e). While step s is summed and its tile zeroed, step
+// s + grid's chunk is in flight into the other half of the double buffer,
+// and step s + 2 grid's metadata is being read.
+template <int V>
+__global__ void __launch_bounds__(kChunk) grid_ladder_kernel(
+    const float4* __restrict__ feats, const int* __restrict__ pair_splat, WorkList wl,
+    float* __restrict__ out, double* __restrict__ checksum,
+    unsigned long long* __restrict__ tile_writes) {
+  constexpr int kPer = V == 4 ? 2 : 1;
+  constexpr bool kStages = V != 2;
+  // two buffers of kPer staged chunks, then (d) the shared copy of the tile
+  extern __shared__ float4 smem[];
+  __shared__ double s_red[2][kPer * kWarps];
+  float4* s_out = smem + 2 * kPer * kSlotF4;
+
+  const long long n_steps = (wl.n_items + kPer - 1) / kPer;
+  const long long grid = gridDim.x;
+  long long s = blockIdx.x;
+  unsigned long long writes = 0;
+  bool owns_tile0 = false;
+
+  Step<kPer> cur, nxt, later;
+  begin_step<V>(wl, s, n_steps, cur);
+  range_step<V>(wl, cur);
+  if (kStages) {
+    splat_step(pair_splat, cur);
+    stage_step(feats, cur, smem);
+    cp_async_commit();
+  }
+  begin_step<V>(wl, s + grid, n_steps, nxt);
+  range_step<V>(wl, nxt);
+  if (kStages) splat_step(pair_splat, nxt);
+
+  int buf = 0;
+  for (; s < n_steps; s += grid) {
+    if (kStages) {
+      stage_step(feats, nxt, smem + (buf ^ 1) * kPer * kSlotF4);
+      cp_async_commit();  // an empty group past the end keeps the count
+    }
+    begin_step<V>(wl, s + 2 * grid, n_steps, later);
+
+    double acc[kPer];
+    if (kStages) {
+      cp_async_wait<1>();  // step s's copies of this thread have landed;
+      // each thread sums only the pieces it staged
+      const float4* slot = smem + buf * kPer * kSlotF4;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        acc[q] = 0.0;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          if (cur.splat[q][r] >= 0) acc[q] += sum4(slot[q * kSlotF4 + piece(r)]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      if (q >= cur.n || cur.it[q].k != 0) continue;
+      if (V == 3) {
+        zero_shared_tile(s_out);
+        owns_tile0 |= cur.first + q == 0;  // the first item with k == 0
+      } else {
+        zero_tile(out, cur.it[q].tile);
+        ++writes;
+      }
+    }
+    range_step<V>(wl, later);
+    if (V == 2) {
+      acc[0] = __syncthreads_count(holds(cur.it[0], static_cast<int>(threadIdx.x)));
+    } else {
+      block_sums<kPer>(acc, s_red[buf]);
+    }
+    if (kStages) splat_step(pair_splat, later);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        if (q < cur.n) checksum[cur.first + q] = acc[q];
+      }
+    }
+    cur = nxt;
+    nxt = later;
+    buf ^= 1;
+  }
+  if (V == 3 && owns_tile0) {  // tile 0's one write to global memory
+    __syncthreads();
+    write_tile(out, 0, s_out);
+    ++writes;
+  }
+  if (tile_writes != nullptr && threadIdx.x == 0 && writes > 0) atomicAdd(tile_writes, writes);
+}
+
+// Dynamic shared memory of variant V: two buffers of staged chunks (none
+// for c), and for d the shared copy of the output tile.
+constexpr size_t ladder_smem(int v) {
+  return (v == 2 ? 0 : 2 * (v == 4 ? 2 : 1) * kSlotF4 * sizeof(float4)) +
+         (v == 3 ? kTileF4 * sizeof(float4) : 0);
+}
+
+// Variant V's grid for n_items: as many blocks as the card holds at once,
+// at most one per step.
+template <int V>
+cudaError_t ladder_grid(long long n_items, int* grid) {
+  constexpr size_t smem = ladder_smem(V);
+  cudaError_t err = cudaFuncSetAttribute(grid_ladder_kernel<V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_ladder_kernel<V>, kChunk,
+                                                        smem);
+  }
+  if (err != cudaSuccess) return err;
+  const long long per = V == 4 ? 2 : 1;
+  const long long steps = (n_items + per - 1) / per;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  *grid = static_cast<int>(steps < resident ? steps : resident);
+  return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int V>
+cudaError_t launch_ladder(const float4* feats, const int* pair_splat, const WorkList& wl,
+                          float* out, double* checksum, unsigned long long* tile_writes,
+                          cudaStream_t stream) {
+  int grid = 0;
+  const cudaError_t err = ladder_grid<V>(wl.n_items, &grid);
+  if (err != cudaSuccess) return err;
+  grid_ladder_kernel<V><<<grid, kChunk, ladder_smem(V), stream>>>(feats, pair_splat, wl, out,
+                                                                  checksum, tile_writes);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -290,18 +561,44 @@ int gg_probe_alpha_only(const float* feats, const int* pair_splat, const int* ra
   return static_cast<int>(cudaGetLastError());
 }
 
+// variant 0..4 = a..e; tile_writes: null, or a zeroed counter to which the
+// launch adds its writes of output tiles to global memory.
 int gg_grid_ladder(const float* feats, const int* pair_splat, const int* chunk_of_item,
                    const int* tile_of_item, const int* k_of_item, const int* starts,
                    const int* counts, const int* item4, const int* seg2, float* out,
-                   double* checksum, long long n_items, int variant, void* stream) {
-  if (n_items > 0) {
-    grid_ladder_kernel<<<blocks_for(n_items, variant == 4 ? 2 : 1), kChunk, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(feats), pair_splat, chunk_of_item, tile_of_item,
-        k_of_item, starts, counts, reinterpret_cast<const int4*>(item4),
-        reinterpret_cast<const int2*>(seg2), out, checksum, n_items, variant);
+                   double* checksum, unsigned long long* tile_writes, long long n_items,
+                   int variant, void* stream) {
+  if (n_items <= 0) return static_cast<int>(cudaGetLastError());
+  const WorkList wl{chunk_of_item, tile_of_item, k_of_item, starts, counts,
+                    reinterpret_cast<const int4*>(item4), reinterpret_cast<const int2*>(seg2),
+                    n_items};
+  const float4* f = reinterpret_cast<const float4*>(feats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (variant) {
+    case 0: err = launch_ladder<0>(f, pair_splat, wl, out, checksum, tile_writes, s); break;
+    case 1: err = launch_ladder<1>(f, pair_splat, wl, out, checksum, tile_writes, s); break;
+    case 2: err = launch_ladder<2>(f, pair_splat, wl, out, checksum, tile_writes, s); break;
+    case 3: err = launch_ladder<3>(f, pair_splat, wl, out, checksum, tile_writes, s); break;
+    case 4: err = launch_ladder<4>(f, pair_splat, wl, out, checksum, tile_writes, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
+}
+
+// Writes to *grid the blocks gg_grid_ladder launches for variant `variant`
+// over n_items; launches nothing.
+int gg_grid_ladder_grid(long long n_items, int variant, int* grid) {
+  cudaError_t err;
+  switch (variant) {
+    case 0: err = ladder_grid<0>(n_items, grid); break;
+    case 1: err = ladder_grid<1>(n_items, grid); break;
+    case 2: err = ladder_grid<2>(n_items, grid); break;
+    case 3: err = ladder_grid<3>(n_items, grid); break;
+    case 4: err = ladder_grid<4>(n_items, grid); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 const char* gg_cuda_error_string(int code) {

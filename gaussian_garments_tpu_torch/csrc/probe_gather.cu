@@ -12,9 +12,16 @@
 //           dynamic_gathers; again the flat gather, at its shape)
 //
 // Kernels:
-//   gather_flat_l2      out[p] = table[idx[p]], one thread per index, the
-//                       table read through __ldg. At 606-655 KB the table
-//                       stays in the 50 MB L2 after the first touch.
+//   gather_flat_l2      out[p] = table[idx[p]] through L2: as many 256-thread
+//                       blocks as the card holds at once stride over the
+//                       int4 groups of the index stream; each thread loads
+//                       kL2Vec groups (streaming, __ldcs), makes all their
+//                       table reads (__ldg) before it stores one float4 a
+//                       group (streaming, __stcs), so the 606-655 KB table
+//                       keeps its place in the 50 MB L2. A ragged last group
+//                       goes through the valid-first Group helper that
+//                       gather_flat_cluster shares. The indices must be
+//                       16-byte aligned (the wrapper raises otherwise).
 //   gather_flat_cluster the counterpart of the VMEM-resident table: each
 //                       thread block cluster of C blocks (C = 4, 8 or 16, a
 //                       template parameter; 16 is a non-portable size) holds
@@ -50,8 +57,9 @@
 // What bounds them on this card: bytes. The indices are read and the output
 // written once (8 B an element) at 3.35 TB/s; the table is read once from
 // device memory and then from L2 or shared memory. A random 4-byte read
-// from L2 moves a 32-byte sector, so the L2 variant is bound by L2 sector
-// throughput long before HBM; the cluster variant replaces those sectors by
+// from L2 moves a 32-byte sector, so the L2 variant is bound by the rate at
+// which L2 serves scattered sectors long before HBM (the probe also times
+// it with the table in an L2 persisting window); the cluster variant replaces those sectors by
 // distributed-shared-memory reads over the SM-to-SM network, and pays for
 // staging the table into each cluster (one copy of it per cluster, from
 // L2). Rows 4A and 4B move under 1.2 MB: they sit at launch latency.
@@ -62,17 +70,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kClusterThreads = 1024;  // a cluster block's threads
-constexpr int kVec = 2;                // int4 index groups a thread has in flight
-
-__global__ void __launch_bounds__(kThreads) gather_flat_l2_kernel(
-    const float* __restrict__ table, const int* __restrict__ idx, float* __restrict__ out,
-    long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = __ldg(table + __ldg(idx + i));
-  }
-}
+constexpr int kVec = 2;                // int4 index groups a cluster thread has in flight
+constexpr int kL2Vec = 2;              // int4 index groups an L2 thread has in flight
 
 __device__ __forceinline__ unsigned cluster_ctarank() {
   unsigned r;
@@ -127,6 +126,49 @@ __device__ __forceinline__ Group load_group(const int* __restrict__ idx, int n, 
     if (r.count > 2) r.j.z = idx[first + 2];
   }
   return r;
+}
+
+// Store group `grp`'s values: one streaming float4, or its first count floats.
+__device__ __forceinline__ void store_group(float* __restrict__ out, const Group& grp,
+                                            float4 val) {
+  const int c = grp.count;
+  if (c == 4) {
+    __stcs(reinterpret_cast<float4*>(out) + grp.g, val);
+  } else if (c > 0) {
+    float* o = out + 4 * grp.g;
+    o[0] = val.x;
+    if (c > 1) o[1] = val.y;
+    if (c > 2) o[2] = val.z;
+  }
+}
+
+// grid-stride over the int4 groups of the index stream: each thread takes
+// the groups g, g + stride, ... kL2Vec at a time (launched with as many
+// blocks as the card holds at once)
+__global__ void __launch_bounds__(kThreads) gather_flat_l2_kernel(
+    const float* __restrict__ table, const int* __restrict__ idx, float* __restrict__ out,
+    int n) {
+  const int n4 = (n + 3) >> 2;
+  const int stride = static_cast<int>(gridDim.x * blockDim.x);
+  for (int g = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x); g < n4;
+       g += kL2Vec * stride) {
+    Group grp[kL2Vec];
+#pragma unroll
+    for (int v = 0; v < kL2Vec; ++v) {
+      const int gv = g + v * stride;
+      grp[v] = load_group(idx, n, gv < n4 ? gv : -1);
+    }
+    float4 val[kL2Vec];
+#pragma unroll
+    for (int v = 0; v < kL2Vec; ++v) {  // every table read before the first store
+      val[v].x = grp[v].count > 0 ? __ldg(table + grp[v].j.x) : 0.0f;
+      val[v].y = grp[v].count > 1 ? __ldg(table + grp[v].j.y) : 0.0f;
+      val[v].z = grp[v].count > 2 ? __ldg(table + grp[v].j.z) : 0.0f;
+      val[v].w = grp[v].count > 3 ? __ldg(table + grp[v].j.w) : 0.0f;
+    }
+#pragma unroll
+    for (int v = 0; v < kL2Vec; ++v) store_group(out, grp[v], val[v]);
+  }
 }
 
 template <int kShift>
@@ -200,17 +242,7 @@ __global__ void __launch_bounds__(kClusterThreads, kShift >= 3 ? 2 : 1)
       val[v].w = grp[v].count > 3 ? gather_one<kShift>(base, grp[v].j.w) : 0.0f;
     }
 #pragma unroll
-    for (int v = 0; v < kVec; ++v) {
-      const int c = grp[v].count;
-      if (c == 4) {
-        __stcs(reinterpret_cast<float4*>(out) + grp[v].g, val[v]);
-      } else if (c > 0) {
-        float* o = out + 4 * grp[v].g;
-        o[0] = val[v].x;
-        if (c > 1) o[1] = val[v].y;
-        if (c > 2) o[2] = val[v].z;
-      }
-    }
+    for (int v = 0; v < kVec; ++v) store_group(out, grp[v], val[v]);
     k += kVec * stride;
     if (k >= local4) break;
 #pragma unroll
@@ -239,6 +271,22 @@ __global__ void __launch_bounds__(kThreads) gather_axis1_kernel(
 }
 
 int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
+
+// gather_flat_l2_kernel's grid for n indices: as many blocks as the card
+// holds at once, and no more than one thread per int4 group needs.
+cudaError_t l2_grid(int n, int* grid) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_flat_l2_kernel, kThreads, 0);
+  }
+  if (err != cudaSuccess) return err;
+  const int needed = blocks_for((static_cast<long long>(n) + 3) / 4);
+  const int resident = per_sm * sms;
+  *grid = needed < resident ? needed : resident;
+  return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
 
 // Sets up the launch of gather_flat_cluster_kernel<kShift> for a table of
 // table_size entries: shared memory, cluster size, one cluster's grid; and
@@ -295,15 +343,20 @@ extern "C" {
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
 
-int gg_gather_flat_l2(const float* table, const int* idx, float* out, long long n,
-                      void* stream) {
-  if (n > 0) {
-    const int grid = blocks_for(n) < 132 * 16 ? blocks_for(n) : 132 * 16;
-    gather_flat_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        table, idx, out, n);
-  }
+// idx 16-byte aligned, n < 2^31 (the wrapper checks both).
+int gg_gather_flat_l2(const float* table, const int* idx, float* out, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  int grid = 0;
+  const cudaError_t err = l2_grid(n, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gather_flat_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(table, idx,
+                                                                                 out, n);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Writes to *grid the blocks gg_gather_flat_l2 launches for n indices;
+// launches nothing.
+int gg_gather_l2_grid(int n, int* grid) { return static_cast<int>(l2_grid(n, grid)); }
 
 // cluster: 4, 8 or 16 blocks; blk: a positive multiple of 4; table and idx
 // 16-byte aligned; n < 2^31 (the wrapper checks all of these).
@@ -337,6 +390,25 @@ int gg_gather_cluster_grid(int table_size, int cluster, int* clusters) {
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Sets (bytes > 0) or clears (bytes == 0) an L2 persisting access-policy
+// window over [base, base + bytes) on `stream`, with the persisting L2 set
+// aside to match; a clear also resets the lines already persisting. For the
+// probe's timing of gather_flat_l2 both ways; no kernel reads it.
+int gg_l2_persisting_window(void* stream, const void* base, long long bytes) {
+  cudaError_t err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStreamAttrValue v = {};
+  v.accessPolicyWindow.base_ptr = const_cast<void*>(base);
+  v.accessPolicyWindow.num_bytes = static_cast<size_t>(bytes);
+  v.accessPolicyWindow.hitRatio = bytes > 0 ? 1.0f : 0.0f;
+  v.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+  v.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+  err = cudaStreamSetAttribute(static_cast<cudaStream_t>(stream),
+                               cudaStreamAttributeAccessPolicyWindow, &v);
+  if (err == cudaSuccess && bytes == 0) err = cudaCtxResetPersistingL2Cache();
+  return static_cast<int>(err);
 }
 
 int gg_gather_axis0(const float* tab, const int* idx, float* out, int rows_out, int cols,

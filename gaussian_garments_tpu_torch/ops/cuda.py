@@ -34,14 +34,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {
     "composite_fwd": {"gg_composite_fwd": "pppiiiipppppp"},
     "composite_bwd": {"gg_composite_bwd": "ppppppppiiiipp"},
-    "probe_gather": {"gg_gather_flat_l2": "ppplp",
+    "probe_gather": {"gg_gather_flat_l2": "pppip",
+                     "gg_gather_l2_grid": "ip",
+                     "gg_l2_persisting_window": "ppl",
                      "gg_gather_flat_cluster": "pppiiiiip",
                      "gg_gather_cluster_grid": "iip",
                      "gg_gather_axis0": "pppiip",
                      "gg_gather_axis1": "pppiiip"},
     "probe_composite": {"gg_probe_null": "pppiiiippppppp",
                         "gg_probe_alpha_only": "pppiiiipp",
-                        "gg_grid_ladder": "ppppppppppplip"},
+                        "gg_grid_ladder": "pppppppppppplip",
+                        "gg_grid_ladder_grid": "lip"},
 }
 
 # kernel -> (source, the TPU kernel it replaces). The probes' rows of the

@@ -9,7 +9,11 @@ entry table in blocks of 1,280), at their shapes and with their seeds.
 
 A 606–655 KB table does not fit one block's 227 KB of shared memory, so the
 flat gather runs as two kernels (``csrc/probe_gather.cu``): ``flat_l2``
-reads the table through L2; ``flat_cluster`` stages it across the shared
+reads the table through L2, as many blocks as the card holds at once
+striding over the indices' int4 groups (``l2_groups`` is the CPU twin of
+that partition), each thread with two groups' eight table reads in flight
+before its float4 stores (on the card the probe also times it with the
+table in an L2 persisting window); ``flat_cluster`` stages it across the shared
 memory of a cluster of 4, 8 or 16 blocks (its float4 groups dealt to the
 ranks in turn, ``cluster_slices``) and gathers through distributed shared
 memory, the counterpart of the VMEM-resident table. On the card the probe
@@ -34,6 +38,7 @@ import torch
 from gaussian_garments_tpu_torch.ops.cuda import check_tensor, launch, route, stream
 from gaussian_garments_tpu_torch.probes.common import Entry, cuda_ms, max_abs, report
 
+L2_THREADS, L2_VEC = 256, 2  # flat_l2's block, and the int4 groups a thread has in flight
 CLUSTER_SIZES = (4, 8, 16)  # the cluster sizes the kernel is built for
 CLUSTER = 4                 # the default: the fastest of them at every flat row on an H100
 SMEM_BLOCK_BYTES = 232_448
@@ -66,9 +71,24 @@ def gather_flat_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.reshape(-1)[idx.reshape(-1).long()]
 
 
+def _check_vector_args(kernel, table, idx, vectors):
+    """Raise unless ``kernel`` can take ``table`` and ``idx``: fewer than 2^31
+    entries each, and each of ``vectors`` (name -> tensor read as 16-byte
+    vectors) 16-byte aligned."""
+    if idx.numel() >= 2 ** 31 or table.numel() >= 2 ** 31:
+        raise ValueError(f"{kernel} takes fewer than 2^31 indices and table entries")
+    for name, t in vectors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel} reads {name} as 16-byte vectors: it must be "
+                             "16-byte aligned")
+
+
 def gather_flat_l2_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch ``flat_l2``: one thread per index, the table read through L2."""
+    """Launch ``flat_l2``: as many blocks as the card holds at once stride
+    over the indices' int4 groups, the table read through L2. Raises for
+    indices that are not 16-byte aligned."""
     dev = _check_flat(table, idx)
+    _check_vector_args("flat_l2", table, idx, {"idx": idx})
     out = torch.empty(idx.numel(), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         launch("probe_gather", "gg_gather_flat_l2", table.data_ptr(), idx.data_ptr(),
@@ -78,6 +98,20 @@ def gather_flat_l2_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_flat_l2_cuda.launches = 0
+
+
+def l2_groups(n: int, grid: int) -> np.ndarray:
+    """CPU twin of ``flat_l2``'s partition of ``n`` indices over ``grid``
+    blocks: (threads, rounds, L2_VEC) int64, the int4 group of the index
+    stream that each thread takes in each round of its loop, slot by slot
+    (-1 for none). Thread t's round r takes groups t + (r·L2_VEC + v)·stride,
+    stride = grid·L2_THREADS; group g holds indices 4g … min(4g + 4, n) − 1."""
+    n4 = -(-n // 4)
+    stride = grid * L2_THREADS
+    rounds = max(1, -(-n4 // (L2_VEC * stride)))
+    base = np.arange(stride)[:, None, None] + np.arange(rounds)[None, :, None] * L2_VEC * stride
+    g = base + np.arange(L2_VEC)[None, None, :] * stride
+    return np.where((base < n4) & (g < n4), g, -1)
 
 
 def _slots(table_size: int, cluster: int) -> int:
@@ -115,11 +149,7 @@ def _check_cluster_args(table, idx, blk, cluster):
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     if blk <= 0 or blk % 4:
         raise ValueError(f"blk must be a positive multiple of 4, got {blk}")
-    if idx.numel() >= 2 ** 31 or table.numel() >= 2 ** 31:
-        raise ValueError("flat_cluster takes fewer than 2^31 indices and table entries")
-    if table.data_ptr() % 16 or idx.data_ptr() % 16:
-        raise ValueError("flat_cluster reads the table and the indices as 16-byte vectors: "
-                         "both must be 16-byte aligned")
+    _check_vector_args("flat_cluster", table, idx, {"table": table, "idx": idx})
     slice_bytes = _slots(table.numel(), cluster) * 16
     if slice_bytes > SMEM_BLOCK_BYTES:
         raise ValueError(f"a {table.numel()}-entry table needs {slice_bytes} B of shared "
@@ -155,6 +185,30 @@ def cluster_grid(table: torch.Tensor, cluster: int) -> int:
     with torch.cuda.device(table.device):
         launch("probe_gather", "gg_gather_cluster_grid", table.numel(), cluster, out.data_ptr())
     return int(out)
+
+
+def l2_grid(n: int, device) -> int:
+    """How many blocks ``flat_l2`` launches for ``n`` indices on ``device``'s
+    card: as many as it holds at once, at most one thread per int4 group."""
+    out = torch.zeros(1, dtype=torch.int32)
+    with torch.cuda.device(device):
+        launch("probe_gather", "gg_gather_l2_grid", n, out.data_ptr())
+    return int(out)
+
+
+def l2_window_ms(table: torch.Tensor, idx: torch.Tensor, reps: int = 20) -> float:
+    """``flat_l2``'s ms (CUDA events, mean of ``reps``) with the table in an
+    L2 persisting access-policy window on the current stream; the window is
+    cleared afterwards, whatever happens."""
+    s = stream(table.device)
+    with torch.cuda.device(table.device):
+        launch("probe_gather", "gg_l2_persisting_window", s, table.data_ptr(),
+               table.numel() * 4)
+        try:
+            return cuda_ms(lambda: gather_flat_l2_cuda(table, idx), reps)
+        finally:
+            torch.cuda.synchronize()
+            launch("probe_gather", "gg_l2_persisting_window", s, table.data_ptr(), 0)
 
 
 def gather_axis_plain(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
@@ -326,6 +380,12 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     es = entries(device, inputs, args.rows)
 
     def extra(e, row):
+        if e.name == "gather_flat_l2" and device.type == "cuda":
+            table, idx = inputs[e.row]
+            row["grid"] = l2_grid(idx.numel(), device)
+            row["ms_l2_window"] = l2_window_ms(table, idx, args.reps)
+            print(f"{'':>6} {'':<20} grid {row['grid']} blocks of 256 threads; with the table "
+                  f"in an L2 persisting window {row['ms_l2_window']:.4f} ms", flush=True)
         if e.name == "gather_flat_cluster" and device.type == "cuda":
             row["sweep"] = cluster_sweep(inputs, e.row, args.reps)
             row["ms_unstaged"] = row["sweep"][CLUSTER]["ms_unstaged"]

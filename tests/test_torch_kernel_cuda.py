@@ -260,3 +260,64 @@ def test_alpha_only_kernel_matches_plain_on_cull_scene(dev):
     entry = composite_null.entries(pairs, H, W)[1]
     assert entry.name == "probe_alpha_only"
     _held(entry)
+
+
+def _ladder_scene(dev, name):
+    """(pairs, work list): ``bench.py``'s scene (5,039 items, odd), or the
+    first seeded 20K-splat 256² scene whose work list holds an even number
+    of items."""
+    from gaussian_garments_tpu_torch.probes.scene import bench_scene
+    from gaussian_garments_tpu_torch.probes.worklist import build_worklist
+
+    if name == "bench":
+        _, pairs = bench_scene(dev)
+        wl = build_worklist(pairs.ranges)
+        assert wl.n_items % 2 == 1
+        return pairs, wl
+    for seed in range(8):
+        pairs = tiles.bin_pairs(_proj(dev, 20000, seed=seed), image_width=W, image_height=H)
+        wl = build_worklist(pairs.ranges)
+        if wl.n_items % 2 == 0:
+            return pairs, wl
+    raise AssertionError("no seeded 256² scene with an even number of work items")
+
+
+@pytest.mark.parametrize("scene_name", ["bench", "seeded_256"])
+def test_grid_ladder_every_variant(dev, scene_name):
+    """Every ladder variant of the persistent walk at an odd and an even item
+    count: the tiles the plain version zeroes are exact zeros (so free of
+    NaN), the checksums agree to 1e-6 × max, every launch counts, and the
+    kernel's count of output tiles written to global memory is one per tile
+    that holds pairs, and 1 for d (tile 0, once)."""
+    from gaussian_garments_tpu_torch.probes import grid_overhead as G
+
+    pairs, wl = _ladder_scene(dev, scene_name)
+    first_items = int((wl.k_of_item == 0).sum())
+    for e in G.entries(pairs, wl):
+        _held(e)
+        v = e.row
+        (k_out, k_sum), (p_out, p_sum) = G.grid_ladder(pairs, wl, v), G.grid_ladder_plain(pairs, wl, v)
+        written = ~torch.isnan(p_out[:, 0, 0])
+        assert int(written.sum()) == (1 if v == "d" else first_items)
+        assert torch.equal(k_out[written], torch.zeros_like(k_out[written]))
+        assert float((k_sum - p_sum).abs().max()) <= 1e-6 * float(p_sum.abs().max())
+        assert G.count_tile_writes(pairs, wl, v) == (1 if v == "d" else first_items)
+        assert 1 <= G.ladder_grid(wl.n_items, v, dev) <= G.n_steps(wl.n_items, v)
+
+
+@pytest.mark.parametrize("n", [5, 2_097_153])
+def test_gather_flat_l2_ragged(dev, n):
+    """``flat_l2`` at index counts that leave a ragged int4 group: exact, and
+    indices that are not 16-byte aligned are refused."""
+    from gaussian_garments_tpu_torch.probes import gather
+
+    rng = np.random.RandomState(n)
+    table = torch.as_tensor(rng.randn(1184 * 128).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.randint(0, table.numel(), n + 1).astype(np.int32), device=dev)
+    before = gather.gather_flat_l2_cuda.launches
+    got = gather.gather_flat_l2_cuda(table, idx[:n])
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_flat_plain(table, idx[:n]))
+    assert gather.gather_flat_l2_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="aligned"):
+        gather.gather_flat_l2_cuda(table, idx[1:])

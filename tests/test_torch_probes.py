@@ -168,6 +168,24 @@ def test_gather_entries_bound_by_bytes():
     assert by == "bytes" and ms == pytest.approx(17_383_424 / 3.35e12 * 1e3)
 
 
+@pytest.mark.parametrize("n", [2_097_152, 2_097_920, 4001, 4002, 4003])
+@pytest.mark.parametrize("grid", [1, 7, 792])
+def test_l2_partition_takes_every_index_once(n, grid):
+    """``flat_l2``'s grid-stride over int4 groups (``l2_groups``, the CPU twin
+    of the kernel's loop) covers every index exactly once, at the TPU rows'
+    counts and at ragged counts 4k + 1 … 3, whether the grid is one block,
+    a few, or as many as the card holds."""
+    groups = gather.l2_groups(n, grid)
+    assert groups.shape[0] == grid * gather.L2_THREADS and groups.shape[2] == gather.L2_VEC
+    g = groups[groups >= 0]
+    assert len(np.unique(g)) == len(g) == -(-n // 4)
+    count = np.minimum(4, n - 4 * g)
+    assert count.min() >= 1 and (count < 4).sum() == (n % 4 != 0)
+    lane = np.arange(4)[None, :]
+    pos = (4 * g[:, None] + lane)[lane < count[:, None]]
+    assert np.array_equal(np.bincount(pos, minlength=n), np.ones(n, dtype=np.int64))
+
+
 # ---------------------------------------------------------------------------
 # the work list and the binning behind it
 # ---------------------------------------------------------------------------
@@ -237,6 +255,56 @@ def test_grid_ladder_plain_checksums(scene):
             assert per_item.min() >= 1 and per_item.max() <= CHUNK
         else:
             np.testing.assert_allclose(checksum.numpy(), want, rtol=1e-6, atol=1e-9)
+
+
+# per-tile pair counts whose work lists hold an even (12) and an odd (13)
+# number of items; tiles with no pairs, chunks shared by two tiles, tiles of
+# one to three chunks
+LADDER_COUNTS = {"even": [0, 300, 0, 700, 10, 256, 1, 513],
+                 "odd": [0, 300, 0, 700, 10, 256, 1, 513, 4]}
+
+
+@pytest.mark.parametrize("variant", list(grid_overhead.VARIANTS))
+@pytest.mark.parametrize("case", ["even", "odd", "scene"])
+def test_ladder_schedule_takes_every_item_once(request, case, variant):
+    """The persistent walk (``ladder_schedule``, the CPU twin of the kernel's
+    loop) at one block, a few, exactly one per step and more blocks than
+    steps: every item is taken exactly once, block b takes steps b, b + grid,
+    ..., e pairs items (2j, 2j + 1), and the output tiles go to global memory
+    as the variant says (``ladder_tile_writes``): d writes tile 0 exactly
+    once, from the block that takes item 0, the first item with k == 0; the
+    others write each tile that holds pairs exactly once."""
+    if case == "scene":
+        wl = build_worklist(request.getfixturevalue("scene")["pairs"].ranges)
+    else:
+        counts = LADDER_COUNTS[case]
+        wl = build_worklist(torch.as_tensor(np.cumsum([0] + counts).astype(np.int32)))
+        assert wl.n_items % 2 == (case == "odd")
+    n, per = wl.n_items, grid_overhead.items_per_step(variant)
+    steps = grid_overhead.n_steps(n, variant)
+    assert int(wl.k_of_item[0]) == 0
+    for grid in (1, 5, steps, steps + 3):
+        sched = grid_overhead.ladder_schedule(n, grid, variant)
+        assert len(sched) == min(grid, steps)
+        taken = [i for blk in sched for step in blk for i in step]
+        assert sorted(taken) == list(range(n))
+        for b, blk in enumerate(sched):
+            assert [step[0] // per for step in blk] == list(range(b, steps, len(sched)))
+            for step in blk:
+                j = step[0] // per
+                assert step == tuple(range(per * j, min(per * j + per, n)))
+        writes = grid_overhead.ladder_tile_writes(sched, wl.k_of_item, wl.tile_of_item, variant)
+        if variant == "d":
+            assert writes == [(0, 0)]
+        else:
+            tiles_written = [t for _, t in writes]
+            assert sorted(tiles_written) == sorted(set(wl.tile_of_item.tolist()))
+            blocks = {t: b for b, t in writes}
+            for b, blk in enumerate(sched):
+                for step in blk:
+                    for i in step:
+                        if int(wl.k_of_item[i]) == 0:
+                            assert blocks[int(wl.tile_of_item[i])] == b
 
 
 def test_null_plain_checksums(scene):
