@@ -37,7 +37,9 @@ plain version):
    bound of every pair at every pixel printed beside it, and its share of
    ``composite_fwd``); ``gather_flat_cluster`` also at every cluster size it
    is built for (4, 8, 16), each held exact and timed with the staging and
-   without it;
+   without it; the axis gathers (rows 4A, 4B) beside the launch floor, an
+   empty kernel launched and timed the same way at their grid
+   (``floor_ms``) and at one block;
 6. the inference path at production width (texture 512, SH degree 3,
    940×1280, 3 frames) through ``gaussian_garments_tpu_torch.inference.main``,
    and on frame 0's bundle the forward kernel against its plain version;
@@ -60,7 +62,8 @@ plain version):
    fall, and both compositor kernels must launch; then the device split of one
    full step and both kernels against their plain versions at that shape,
    timed as in phase 4;
-9. the kernel summary line, the card line and the result line.
+9. the kernel summary line (``floor_ms``: the launch floor where the probe
+   times one, else null), the card line and the result line.
 
 Iteration counts of phases 7 and 8 are cuts of the production schedule.
 Imports nothing of JAX. Every number it prints is measured in this run,
@@ -939,13 +942,13 @@ def main() -> int:
                         "replaces": replaces, "launches": s3_launches[name],
                         "max_abs_err": max(errs[name], s2_errs[name], s3_errs[name]), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": None, "floor_ms": None})
     for r in probe_rows:
         kernels.append({"name": r["name"], "route": "cuda", "source": r["source"],
                         "replaces": r["replaces"], "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"], "floor_ms": r["floor_ms"]})
     registered = {r["name"].split("@")[0] for r in probe_rows} | {"composite_fwd", "composite_bwd"}
     check(registered == set(kcuda.KERNELS),
           f"kernels not driven: {set(kcuda.KERNELS) - registered}")

@@ -52,7 +52,15 @@
 //                       unstaged shared memory (values undefined), to time
 //                       the gathers alone.
 //   gather_axis0/1      out[e,j] = tab[idx[e,j], j] and out[r,k] = tab[r,
-//                       idx[r,k]], one thread per output.
+//                       idx[r,k]], one thread per output, in blocks of 256.
+//   launch_floor        an empty kernel: what a launch costs in the same
+//                       call, the floor the axis gathers are judged against.
+//
+// The axis gathers and launch_floor are launched with programmatic stream
+// serialization (Hopper's programmatic dependent launch): each waits on the
+// grid before it (griddepcontrol.wait) before its first global read, and
+// lets the next one launch (griddepcontrol.launch_dependents) after its
+// store.
 //
 // What bounds them on this card: bytes. The indices are read and the output
 // written once (8 B an element) at 3.35 TB/s; the table is read once from
@@ -62,7 +70,17 @@
 // it with the table in an L2 persisting window); the cluster variant replaces those sectors by
 // distributed-shared-memory reads over the SM-to-SM network, and pays for
 // staging the table into each cluster (one copy of it per cluster, from
-// L2). Rows 4A and 4B move under 1.2 MB: they sit at launch latency.
+// L2). Rows 4A and 4B move under 1.2 MB (4A 1,130,496 B, 0.34 us at 3.35
+// TB/s; 4B 671,744 B, 0.20 us), less than a launch costs on this card: what
+// bounds them is the launch (timed beside them as launch_floor, at one block
+// and at their grid) plus the latency of one dependent chain: an index load,
+// a scattered table read (one 32-byte L2 sector each; 4A's 65,536 take >=
+// 0.59 us at the ~112 G sectors/s that gather_flat_l2 reaches) and a store.
+// Since the launch is most of their time, they are launched with
+// programmatic dependent launch, which overlaps a launch with the end of the
+// kernel before it. A vectorised body (one int4 group of outputs a thread,
+// no 64-bit division, every read before the store) took as long or 0.1-0.2
+// us longer under the same launch, so the one-thread-per-output body stays.
 
 #include <cuda_runtime.h>
 
@@ -104,6 +122,17 @@ __device__ __forceinline__ float load_dsmem(unsigned addr, unsigned rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
   return v;
+}
+
+// Programmatic dependent launch: wait until the grid before this one has
+// completed and its writes are visible / let the grid after this one launch.
+// Both do nothing in a kernel launched without programmatic stream
+// serialization.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // One int4 group of the index stream: its indices (valid ones first) and
@@ -258,7 +287,9 @@ __global__ void __launch_bounds__(kThreads) gather_axis0_kernel(
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(rows_out) * cols) return;
   const int j = static_cast<int>(i % cols);
+  wait_prior_grid();
   out[i] = __ldg(tab + static_cast<long long>(__ldg(idx + i)) * cols + j);
+  launch_dependents();
 }
 
 __global__ void __launch_bounds__(kThreads) gather_axis1_kernel(
@@ -267,7 +298,39 @@ __global__ void __launch_bounds__(kThreads) gather_axis1_kernel(
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(rows) * k) return;
   const long long r = i / k;
+  wait_prior_grid();
   out[i] = __ldg(tab + r * len + __ldg(idx + i));
+  launch_dependents();
+}
+
+// No work: the cost of a launch.
+__global__ void launch_floor_kernel() {
+  wait_prior_grid();
+  launch_dependents();
+}
+
+template <typename T>
+struct Same {
+  using type = T;
+};
+
+// Launch `kernel` on `stream` with programmatic stream serialization. The
+// arguments take the kernel's parameter types; the trailing null keeps the
+// argument array non-empty for a kernel without parameters.
+template <typename... Params>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t stream,
+                       typename Same<Params>::type... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  void* arg_ptrs[] = {static_cast<void*>(&args)..., nullptr};
+  return cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(kernel), arg_ptrs);
 }
 
 int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
@@ -414,20 +477,31 @@ int gg_l2_persisting_window(void* stream, const void* base, long long bytes) {
 int gg_gather_axis0(const float* tab, const int* idx, float* out, int rows_out, int cols,
                     void* stream) {
   const long long n = static_cast<long long>(rows_out) * cols;
-  if (n > 0) {
-    gather_axis0_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tab, idx, out, rows_out, cols);
-  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = launch_pdl(gather_axis0_kernel, dim3(blocks_for(n)), dim3(kThreads),
+                                     static_cast<cudaStream_t>(stream), tab, idx, out,
+                                     rows_out, cols);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 int gg_gather_axis1(const float* tab, const int* idx, float* out, int rows, int len, int k,
                     void* stream) {
   const long long n = static_cast<long long>(rows) * k;
-  if (n > 0) {
-    gather_axis1_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tab, idx, out, rows, len, k);
-  }
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = launch_pdl(gather_axis1_kernel, dim3(blocks_for(n)), dim3(kThreads),
+                                     static_cast<cudaStream_t>(stream), tab, idx, out, rows,
+                                     len, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `blocks` blocks of `threads` threads of the empty kernel, launched as the
+// axis gathers are.
+int gg_launch_floor(int blocks, int threads, void* stream) {
+  const cudaError_t err = launch_pdl(launch_floor_kernel, dim3(blocks), dim3(threads),
+                                     static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

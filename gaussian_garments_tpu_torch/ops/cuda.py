@@ -40,7 +40,8 @@ SOURCES = {
                      "gg_gather_flat_cluster": "pppiiiiip",
                      "gg_gather_cluster_grid": "iip",
                      "gg_gather_axis0": "pppiip",
-                     "gg_gather_axis1": "pppiiip"},
+                     "gg_gather_axis1": "pppiiip",
+                     "gg_launch_floor": "iip"},
     "probe_composite": {"gg_probe_null": "pppiiiippppppp",
                         "gg_probe_alpha_only": "pppiiiipp",
                         "gg_grid_ladder": "pppppppppppplip",

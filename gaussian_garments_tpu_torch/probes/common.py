@@ -2,8 +2,10 @@
 
 An ``Entry`` is one probe kernel at one shape: how to launch it, its plain
 version and the one PyTorch call that computes the same function (if there
-is one), how to hold the kernel's output against the plain one, and the
-bytes and operations its bound counts from this run's inputs.
+is one), how to hold the kernel's output against the plain one, the
+bytes and operations its bound counts from this run's inputs, and, where
+the kernel is shorter than a launch, an empty kernel at its grid: the
+launch floor, timed the same way and printed beside the bound.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ class Entry:
     evals: int = 0                # special-function evaluations it must do
     walked_evals: int = 0         # those its walk makes, where they differ
     library: Optional[Callable[[], object]] = None
+    floor: Optional[Callable[[], object]] = None  # one launch of an empty kernel at its grid
     shape: str = ""
 
     @property
@@ -95,6 +98,7 @@ def report(entries, device: torch.device, reps: int, extra=None) -> list:
             row["ms"] = cuda_ms(e.run, reps)
             row["plain_ms"] = cuda_ms(e.plain, 1)
             row["library_ms"] = cuda_ms(e.library, reps) if e.library else None
+            row["floor_ms"] = cuda_ms(e.floor, reps) if e.floor else None
         row["bound_ms"], row["bound_by"] = e.bound()
         walked = ""
         if e.walked_evals:
@@ -105,9 +109,10 @@ def report(entries, device: torch.device, reps: int, extra=None) -> list:
         times = (f"{row['ms']:9.4f} ms (CUDA events, mean of {reps})" if on_card
                  else "ms not measured (cpu)")
         lib = f", library {row['library_ms']:.4f} ms" if on_card and e.library else ""
+        floor = f", floor {row['floor_ms']:.4f} ms" if on_card and e.floor else ""
         print(f"{e.row:>6} {e.name:<20} ok={ok} max|err|={err:.3g}  {times}, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}{walked}{lib}  [{e.shape}]",
-              flush=True)
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}{floor}{walked}{lib}  "
+              f"[{e.shape}]", flush=True)
         if extra:
             extra(e, row)
     return rows

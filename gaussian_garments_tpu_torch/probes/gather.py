@@ -19,6 +19,13 @@ ranks in turn, ``cluster_slices``) and gathers through distributed shared
 memory, the counterpart of the VMEM-resident table. On the card the probe
 times it at every cluster size, with the staging and without it.
 
+The axis gathers (rows 4A, 4B) move under 1.2 MB, less than a launch costs:
+one thread an output in blocks of 256, launched with programmatic dependent
+launch (the next kernel on the stream may launch once this one has stored;
+it waits for this one before its first read). Beside their bound the probe
+prints the launch floor: an empty kernel launched and timed the same way
+(``launch_floor``), at their grid and at one block.
+
     python -m gaussian_garments_tpu_torch.probes.gather [--device cuda] [--reps 20] \
         [--rows 3 4C 5 4A 4B]
 
@@ -55,6 +62,7 @@ AXIS_ROWS = {
     "4B": (1, (8, 18_944), (8, 1024), "scripts/profile_pallas_gather2.py:72"),
 }
 ROWS = (*FLAT_ROWS, *AXIS_ROWS)
+AXIS_THREADS = 256  # an axis-gather block's threads, one an output
 
 
 def _check_flat(table: torch.Tensor, idx: torch.Tensor) -> torch.device:
@@ -224,16 +232,14 @@ def _gather_axis_cuda(tab, idx, axis):
     check_tensor(idx, "idx", torch.int32, dev)
     if tab.ndim != 2 or idx.ndim != 2:
         raise ValueError("the axis gathers take 2-D tensors")
+    if idx.shape[1 - axis] != tab.shape[1 - axis]:
+        raise ValueError(f"axis {axis}: idx {tuple(idx.shape)} and tab {tuple(tab.shape)}")
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         if axis == 0:
-            if idx.shape[1] != tab.shape[1]:
-                raise ValueError(f"axis 0: idx {tuple(idx.shape)} and tab {tuple(tab.shape)}")
             launch("probe_gather", "gg_gather_axis0", tab.data_ptr(), idx.data_ptr(),
                    out.data_ptr(), idx.shape[0], idx.shape[1], stream(dev))
         else:
-            if idx.shape[0] != tab.shape[0]:
-                raise ValueError(f"axis 1: idx {tuple(idx.shape)} and tab {tuple(tab.shape)}")
             launch("probe_gather", "gg_gather_axis1", tab.data_ptr(), idx.data_ptr(),
                    out.data_ptr(), tab.shape[0], tab.shape[1], idx.shape[1], stream(dev))
     return out
@@ -255,6 +261,16 @@ def gather_axis1_cuda(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 gather_axis0_cuda.launches = 0
 gather_axis1_cuda.launches = 0
+
+
+def launch_floor(blocks: int, threads: int, device) -> None:
+    """One launch of an empty kernel of ``blocks`` blocks of ``threads``
+    threads on ``device``'s current stream, with programmatic dependent launch
+    as the axis gathers: the launch floor. It replaces no TPU kernel and
+    counts no launches."""
+    with torch.cuda.device(device):
+        launch("probe_gather", "gg_launch_floor", blocks, threads, stream(device))
+
 
 # kernel name -> the wrapper that counts its launches
 WRAPPERS = {"gather_flat_l2": gather_flat_l2_cuda,
@@ -333,6 +349,7 @@ def entries(device, inputs: Optional[dict] = None, rows: Sequence[str] = ROWS) -
             continue
         tab, idx = inputs[row]
         idx64 = idx.long()
+        blocks = -(-int(np.prod(ishape)) // AXIS_THREADS)
         out.append(Entry(
             name=f"gather_axis{axis}", row=row, replaces=replaces,
             wrapper=gather_axis0_cuda if axis == 0 else gather_axis1_cuda,
@@ -340,7 +357,9 @@ def entries(device, inputs: Optional[dict] = None, rows: Sequence[str] = ROWS) -
             plain=lambda t=tab, i=idx, a=axis: gather_axis_plain(t, i, a),
             compare=_exact, tolerance="exact", nbytes=tab.numel() * 4 + idx.numel() * 8,
             library=lambda t=tab, i=idx64, a=axis: torch.gather(t, a, i),
-            shape=f"take_along_axis axis {axis}: tab {tshape} f32, idx {ishape} int32"))
+            floor=lambda b=blocks: launch_floor(b, AXIS_THREADS, device),
+            shape=f"take_along_axis axis {axis}: tab {tshape} f32, idx {ishape} int32; "
+                  f"{blocks} blocks of {AXIS_THREADS}, programmatic dependent launch"))
     return out
 
 
@@ -380,6 +399,11 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     es = entries(device, inputs, args.rows)
 
     def extra(e, row):
+        if e.name.startswith("gather_axis") and device.type == "cuda":
+            row["floor_one_block_ms"] = cuda_ms(
+                lambda: launch_floor(1, AXIS_THREADS, device), args.reps)
+            print(f"{'':>6} {'':<20} empty kernel at one block of {AXIS_THREADS} "
+                  f"{row['floor_one_block_ms']:.4f} ms", flush=True)
         if e.name == "gather_flat_l2" and device.type == "cuda":
             table, idx = inputs[e.row]
             row["grid"] = l2_grid(idx.numel(), device)

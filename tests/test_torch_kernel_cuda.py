@@ -321,3 +321,85 @@ def test_gather_flat_l2_ragged(dev, n):
     assert gather.gather_flat_l2_cuda.launches == before + 1
     with pytest.raises(ValueError, match="aligned"):
         gather.gather_flat_l2_cuda(table, idx[1:])
+
+
+def _axis_case(dev, case):
+    """(tab, idx, axis) of an axis-gather case: the TPU rows 4A and 4B; odd
+    widths (tab (37, 131) / idx (19, 131) on axis 0, tab (3, 1001) / idx
+    (3, 257) on axis 1); 4A's and 4B's indices as ``idx[:, 1:]`` made
+    contiguous (a width of 127 or 1023; axis 0 takes ``tab[:, 1:]`` with
+    them); and at a storage offset of one element, 4 bytes from 16-byte
+    alignment."""
+    from gaussian_garments_tpu_torch.probes import gather
+
+    axis = int(case[-1])
+    if case.startswith("odd"):
+        tshape, ishape = ((37, 131), (19, 131)) if axis == 0 else ((3, 1001), (3, 257))
+        rng = np.random.RandomState(axis)
+        tab = torch.as_tensor(rng.randn(*tshape).astype(np.float32), device=dev)
+        idx = torch.as_tensor(rng.randint(0, tshape[axis], ishape).astype(np.int32), device=dev)
+        return tab, idx, axis
+    tab, idx = gather.make_inputs(dev)["4A" if axis == 0 else "4B"]
+    if case.startswith("row"):
+        return tab, idx, axis
+    if case.startswith("narrow"):
+        idx = idx[:, 1:].contiguous()
+        return (tab[:, 1:].contiguous() if axis == 0 else tab), idx, axis
+    buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = buf[1:].view(idx.shape)
+    shifted.copy_(idx)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    return tab, shifted, axis
+
+
+@pytest.mark.parametrize("case", ["row0", "row1", "odd0", "odd1", "narrow0", "narrow1",
+                                  "offset0", "offset1"])
+def test_gather_axis_kernels_exact(dev, case):
+    """Both axis gathers equal ``gather_axis_plain`` and ``torch.gather`` bit
+    for bit (row0/row1: the TPU rows 4A and 4B); the launch counts."""
+    from gaussian_garments_tpu_torch.probes import gather
+
+    tab, idx, axis = _axis_case(dev, case)
+    wrapper = gather.gather_axis0_cuda if axis == 0 else gather.gather_axis1_cuda
+    want = gather.gather_axis_plain(tab, idx, axis)
+    assert torch.equal(want, torch.gather(tab, axis, idx.long()))
+    before = wrapper.launches
+    got = wrapper(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), case
+    assert wrapper.launches == before + 1
+
+
+def test_gather_axis_waits_for_the_kernel_before_it(dev):
+    """With programmatic dependent launch a gather may launch before the
+    kernel ahead of it has finished. 20 rounds of three kernels back to back:
+    one ``bitwise_xor`` that rewrites both the table and the indices (the
+    two are views of one int32 buffer), an axis-0 gather of them, and an
+    axis-1 gather whose table is that gather's output. Every output equals
+    the same rounds replayed with ``torch.gather`` bit for bit."""
+    from gaussian_garments_tpu_torch.probes import gather
+
+    n, rounds = 256, 20
+    rng = np.random.RandomState(3)
+    init = np.concatenate([rng.randn(n * n).astype(np.float32).view(np.int32),
+                           rng.randint(0, n, n * n).astype(np.int32)])
+    keys = rng.randint(0, n, rounds)  # an xor below n keeps every index below n
+    views = lambda blob: (blob[:n * n].view(torch.float32).view(n, n), blob[n * n:].view(n, n))
+    blob = torch.as_tensor(init, device=dev)
+    tab, idx = views(blob)
+    before = (gather.gather_axis0_cuda.launches, gather.gather_axis1_cuda.launches)
+    got = []
+    for key in keys:
+        torch.bitwise_xor(blob, int(key), out=blob)
+        out0 = gather.gather_axis0_cuda(tab, idx)
+        got.append((out0, gather.gather_axis1_cuda(out0, idx)))
+    torch.cuda.synchronize()
+    assert (gather.gather_axis0_cuda.launches, gather.gather_axis1_cuda.launches) == (
+        before[0] + rounds, before[1] + rounds)
+    ref = torch.as_tensor(init, device=dev)
+    rtab, ridx = views(ref)
+    for key, (out0, out1) in zip(keys, got):
+        torch.bitwise_xor(ref, int(key), out=ref)
+        want0 = torch.gather(rtab, 0, ridx.long())
+        assert torch.equal(out0, want0)
+        assert torch.equal(out1, torch.gather(want0, 1, ridx.long()))

@@ -101,6 +101,38 @@ def test_axis_gathers_match_take_along_axis(row):
     np.testing.assert_array_equal(gather.gather_axis(tab, idx, axis).numpy(), want)
 
 
+# case -> (table shape, index shape, axis): widths that are no multiple of 4,
+# a single output, wide and tall outputs
+AXIS_CASES = {"odd0": ((37, 131), (19, 131), 0), "odd1": ((3, 1001), (3, 257), 1),
+              "one0": ((1, 1), (1, 1), 0), "one1": ((1, 1), (1, 1), 1),
+              "wide0": ((5, 516), (3, 516), 0), "wide1": ((2, 600), (2, 260), 1),
+              "tall0": ((600, 3), (2000, 3), 0), "tall1": ((3000, 5), (3000, 2), 1)}
+
+
+@pytest.mark.parametrize("case", list(AXIS_CASES))
+def test_axis_gathers_match_take_along_axis_at_any_shape(case):
+    """The axis gathers equal ``jnp.take_along_axis`` at shapes other than
+    the TPU rows', exactly."""
+    tshape, ishape, axis = AXIS_CASES[case]
+    rng = np.random.RandomState(sum(ishape))
+    tab = rng.randn(*tshape).astype(np.float32)
+    idx = rng.randint(0, tshape[axis], ishape).astype(np.int32)
+    want = np.asarray(jnp.take_along_axis(jnp.asarray(tab), jnp.asarray(idx), axis=axis))
+    got = gather.gather_axis(torch.as_tensor(tab), torch.as_tensor(idx), axis)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_only_the_axis_entries_carry_a_launch_floor():
+    """The probe times the launch floor beside the axis gathers alone, at
+    their grid of one thread an output in blocks of 256."""
+    es = gather.entries("cpu")
+    assert [e.row for e in es if e.floor] == ["4A", "4B"]
+    for e in es:
+        if e.floor:
+            n = int(np.prod(gather.AXIS_ROWS[e.row][2]))
+            assert f"{-(-n // gather.AXIS_THREADS)} blocks of 256" in e.shape
+
+
 def test_gather_kernels_take_only_cuda_tensors():
     """The kernels' wrappers refuse CPU tensors without launching; the
     routing raises for a device that is neither."""
