@@ -42,7 +42,12 @@ plain version):
    (``floor_ms``) and at one block;
 6. the inference path at production width (texture 512, SH degree 3,
    940×1280, 3 frames) through ``gaussian_garments_tpu_torch.inference.main``,
-   and on frame 0's bundle the forward kernel against its plain version;
+   and on frame 0's bundle the forward kernel against its plain version; then
+   the same with ``--exact_visibility`` (the ray cast timed per frame and at
+   chunks of 256–16,384 rays, its agreement with the depth test printed per
+   frame) and with ``--dense_texels`` on a garment whose UVs are inset into
+   [0.1, 0.9] (its frame 0 render equal to the compact layout's bit for
+   bit), the forward kernel held against its plain version on frame 0 of each;
 7. the stage-2 slice at full width through
    ``gaussian_garments_tpu_torch.s2_registration.main``: a synthetic 64×64
    sheet (7,938 faces), 12 cameras at 940×1280, 2 frames, 4 cameras per step,
@@ -61,7 +66,16 @@ plain version):
    load back through the port, the losses must be finite, the img loss must
    fall, and both compositor kernels must launch; then the device split of one
    full step and both kernels against their plain versions at that shape,
-   timed as in phase 4;
+   timed as in phase 4; then ``--unet_bf16`` on a copy of phase 7's output with
+   the same checks and split, printed beside float32 (s/step, StyleUNet
+   fwd+bwd, peak memory), and the float32 checkpoint rendered on a held-out
+   item by the float32 and the bf16 net (the PSNR of all of the bf16 output
+   and of its Δxyz alone printed, of its ΔSH alone ≥ 40 dB; on the JAX
+   record's scene of all of it, ≥ 40 dB); then
+   ``--dense_texels`` on a copy with the UVs inset, the same checks, and from
+   its checkpoint in both layouts: render and per-tile pair counts equal bit
+   for bit, one step's losses within 1e-4·|loss| + 1e-6, the whole step timed,
+   both kernels against their plain versions at that shape;
 9. the kernel summary line (``floor_ms``: the launch floor where the probe
    times one, else null), the card line and the result line.
 
@@ -69,8 +83,11 @@ Iteration counts of phases 7 and 8 are cuts of the production schedule.
 Imports nothing of JAX. Every number it prints is measured in this run,
 except ``bound_ms``, which it computes from this run's inputs. Launch counts
 are zeroed just before each path is driven and read just after; the
-compositor kernels' ``launches`` in the summary are those of the stage-3 run.
+compositor kernels' ``launches`` in the summary are those of the stage-3 run,
+and every other path must launch them too. The time the phases of the bf16,
+dense and exact-visibility paths took is printed before the summary.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -101,7 +118,22 @@ S3_CUTS = ("pre_train_iterations 3000 -> 10, save_iterations 3000 -> 20; s3_appe
            "fixed 5 epochs stay: 22 training items x 5 epochs = 110 steps, 10 pre-training (net "
            "only), 100 full; 10 saves, each with an eval of the 2 held-out items")
 S3_STEPS, S3_PRE = 110, 10
+UV_INSET = 0.1   # the inset scenes of the dense-layout phases: ~36% dead texels
 PROBE_REPS = 20
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to deterministic algorithms: its default algorithm
+    for the StyleUNet's transposed convolution sums in a run-dependent order
+    (the net's output moves by ~1e-5 from one call to the next), which would
+    hide whether two texel layouts render the same."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 def check(cond, msg):
@@ -388,15 +420,9 @@ def phase_bench_shape(torch, dev):
 
 
 def phase_inference(torch, dev, tmp, out_root):
-    import numpy as np
-    from PIL import Image
     from gaussian_garments_tpu_torch import inference
     from gaussian_garments_tpu_torch.data.synthetic import write_inference_inputs
-    from gaussian_garments_tpu_torch.doll import Simulation, concat_bundle
-    from gaussian_garments_tpu_torch.ops import tiles
-    from gaussian_garments_tpu_torch.ops.mesh_raster import rasterize_mesh
-    from gaussian_garments_tpu_torch.probes.common import cuda_ms
-    from gaussian_garments_tpu_torch.renderer import project
+    from gaussian_garments_tpu_torch.doll import Simulation
 
     traj = os.path.join(tmp, "traj.pkl")
     t0 = time.perf_counter()
@@ -409,36 +435,33 @@ def phase_inference(torch, dev, tmp, out_root):
     argv = ["--traj_path", traj, "--output_path", render_dir, "--device", "cuda",
             "--texture_size", str(TEXTURE), "--sh_degree", str(SH_DEGREE),
             "--width", str(WIDTH), "--height", str(HEIGHT)]
-    tiles.composite_tiles_cuda.launches = 0
-    t0 = time.perf_counter()
-    stats = inference.main(argv)
-    wall = time.perf_counter() - t0
-    launches = tiles.composite_tiles_cuda.launches
-    pngs = sorted(os.listdir(os.path.join(render_dir, "renders")))
-    check(len(pngs) == FRAMES, f"expected {FRAMES} PNGs, got {pngs}")
-    for name in pngs:
-        img = np.asarray(Image.open(os.path.join(render_dir, "renders", name)))
-        check(img.shape == (HEIGHT, 3 * WIDTH, 3), f"{name}: shape {img.shape}")
-        check(img.std() > 0, f"{name}: constant image")
-    check(all(np.isfinite(c) and c > 0 for c in stats["coverage"]),
-          f"garment coverage {stats['coverage']}")
-    check(launches >= 3 * FRAMES, f"composite_fwd launched {launches} times")
-    print(f"inference path: {FRAMES} frames in {wall:.2f} s wall, composite_fwd launches "
-          f"{launches}, coverage {[round(c, 3) for c in stats['coverage']]}")
-    for i, t in enumerate(stats["frames"]):
-        print(f"  frame {i}: " + " ".join(f"{k}={v:.3f}" for k, v in t.items()))
-    print("  per-frame mean (s): " + " ".join(f"{k}={v:.3f}" for k, v in stats["mean"].items()))
+    run_inference(torch, inference, argv, "inference path")
 
     args = inference.parse_args(argv)
+    simu = Simulation(traj, render_dir, sh_degree=SH_DEGREE, texture_size=TEXTURE, device=dev)
+    camera = inference.load_camera(simu.garment_names[0], args, dev)
+    err = frame0_kernel_check(torch, simu, camera, "inference frame 0", framing=True)
+    return traj, render_dir, argv, err
+
+
+def frame0_kernel_check(torch, simu, camera, what, framing=False):
+    """The forward kernel against its plain version on frame 0's bundle of
+    ``simu``, timed beside its plain version and its bound; ``framing``
+    also checks that the garment covers a third of the frame."""
+    from gaussian_garments_tpu_torch.doll import concat_bundle
+    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from gaussian_garments_tpu_torch.probes.common import cuda_ms
+    from gaussian_garments_tpu_torch.renderer import project
+
     with torch.no_grad():
-        simu = Simulation(traj, render_dir, sh_degree=SH_DEGREE, texture_size=TEXTURE, device=dev)
-        camera = inference.load_camera(simu.garment_names[0], args, dev)
         updates, vis = simu.forward(0, camera)
         face, _ = rasterize_mesh(updates[0]["mesh_v"], updates[0]["mesh_f"],
                                  camera.world_view_transform, camera.full_proj_transform,
                                  image_width=WIDTH, image_height=HEIGHT)
         framed = float((face >= 0).float().mean())
-        check(framed >= 1 / 3, f"the garment covers {framed} of the frame, not a third")
+        if framing:
+            check(framed >= 1 / 3, f"the garment covers {framed} of the frame, not a third")
         proj = project(camera, concat_bundle(updates, vis, SH_DEGREE, override="shs"))
         pairs = tiles.bin_pairs(proj, image_width=WIDTH, image_height=HEIGHT)
         kw = dict(image_height=HEIGHT, image_width=WIDTH)
@@ -446,18 +469,133 @@ def phase_inference(torch, dev, tmp, out_root):
         p = tiles.composite_tiles_plain(pairs, **kw)
         live = proj.radii > 0
         counts = pairs.ranges[1:] - pairs.ranges[:-1]
-        compare_fwd(torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()),
-                    f"inference frame 0 @ {WIDTH}x{HEIGHT} (garment covers {framed:.3f}): "
-                    f"{proj.means2d.shape[0]} splats, {int(pairs.ranges[-1])} pairs, max "
-                    f"{int(counts.max())} per tile")
+        err = compare_fwd(torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()),
+                          f"{what} @ {WIDTH}x{HEIGHT} (garment covers {framed:.3f}): "
+                          f"{proj.means2d.shape[0]} splats, {int(vis.sum())} visible, "
+                          f"{int(pairs.ranges[-1])} pairs, max {int(counts.max())} per tile")
         ms = cuda_ms(lambda: tiles.composite_tiles_cuda(pairs, **kw), 20)
         plain = cuda_ms(lambda: tiles.composite_tiles_plain(pairs, **kw), 1)
         wk = work(torch, proj, pairs, k, HEIGHT, WIDTH)
         bound, by, nbytes, terms = wk["composite_fwd"]
-        print(f"  composite_fwd at the inference shape: kernel {ms:.4f} ms (CUDA events, mean "
+        print(f"  composite_fwd at this shape: kernel {ms:.4f} ms (CUDA events, mean "
               f"of 20), plain {plain:.2f} ms (mean of 1), bound {bound:.4f} ms by {by} "
               f"({nbytes} B, {terms} terms); pairs {wk['rect_pairs']} in the plain rect, "
               f"{wk['pairs']} after the row-span cull")
+    return err
+
+
+def run_inference(torch, inference, argv, what):
+    """``inference.main`` with the compositor's launches counted; checks the
+    PNG rows and the coverage and prints the per-frame split."""
+    import numpy as np
+    from PIL import Image
+    from gaussian_garments_tpu_torch.ops import tiles
+
+    tiles.composite_tiles_cuda.launches = 0
+    t0 = time.perf_counter()
+    stats = inference.main(argv)
+    wall = time.perf_counter() - t0
+    launches = tiles.composite_tiles_cuda.launches
+    out = argv[argv.index("--output_path") + 1]
+    pngs = sorted(os.listdir(os.path.join(out, "renders")))
+    check(len(pngs) == FRAMES, f"{what}: expected {FRAMES} PNGs, got {pngs}")
+    for name in pngs:
+        img = np.asarray(Image.open(os.path.join(out, "renders", name)))
+        check(img.shape == (HEIGHT, 3 * WIDTH, 3), f"{what} {name}: shape {img.shape}")
+        check(img.std() > 0, f"{what} {name}: constant image")
+    check(all(np.isfinite(c) and c > 0 for c in stats["coverage"]),
+          f"{what}: garment coverage {stats['coverage']}")
+    check(launches >= 3 * FRAMES, f"{what}: composite_fwd launched {launches} times")
+    print(f"{what}: {FRAMES} frames in {wall:.2f} s wall, composite_fwd launches "
+          f"{launches}, coverage {[round(c, 3) for c in stats['coverage']]}")
+    for i, t in enumerate(stats["frames"]):
+        print(f"  frame {i}: " + " ".join(f"{k}={v:.3f}" for k, v in t.items()))
+    print("  per-frame mean (s): " + " ".join(f"{k}={v:.3f}" for k, v in stats["mean"].items()))
+    return stats, launches
+
+
+def phase_inference_modes(torch, dev, tmp, out_root, traj, render_dir, argv):
+    """``inference --exact_visibility`` on phase 6's inputs (its bakes are
+    cached in ``render_dir``), with the exact-against-depth agreement of
+    every frame and the ray cast timed at several chunk sizes on frame 0;
+    then ``--dense_texels`` on a garment with inset UVs, its render held
+    equal to the compact layout's. The forward kernel is held against its
+    plain version on frame 0's bundle of each."""
+    from gaussian_garments_tpu_torch import inference
+    from gaussian_garments_tpu_torch.data.synthetic import write_inference_inputs
+    from gaussian_garments_tpu_torch.doll import Simulation, concat_bundle, joint_visibility_depth
+    from gaussian_garments_tpu_torch.ops import raytrace
+    from gaussian_garments_tpu_torch.renderer import render
+
+    errs = []
+    stats, _ = run_inference(torch, inference, argv + ["--exact_visibility"],
+                             "inference --exact_visibility")
+    check(all(t["raycast_s"] > 0 for t in stats["frames"]), "the ray cast was not timed")
+    args = inference.parse_args(argv)
+    simu = Simulation(traj, render_dir, sh_degree=SH_DEGREE, texture_size=TEXTURE,
+                      exact_visibility=True, device=dev)
+    camera = inference.load_camera(simu.garment_names[0], args, dev)
+    with torch.no_grad():
+        for idx in range(FRAMES):
+            updates, exact = simu.forward(idx, camera)
+            depth = joint_visibility_depth(updates, camera.world_view_transform,
+                                           camera.full_proj_transform)
+            agree = float((exact == depth).float().mean())
+            print(f"  frame {idx}: exact visibility {float(exact.float().mean()):.4f} of "
+                  f"{exact.numel()} splats visible, depth test {float(depth.float().mean()):.4f}; "
+                  f"agreement {agree:.4f}")
+            check(0.5 < agree and float(exact.float().mean()) > 0.1,
+                  f"frame {idx}: exact visibility {float(exact.float().mean())}, agreement {agree}")
+        # the ray cast alone on frame 0's rays (one garment: the anchors)
+        u = simu.forward(0, camera)[0][0]
+        d = u["anchor"] - camera.camera_center[None]
+        dirs = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+        origins = camera.camera_center[None].expand_as(dirs)
+        n_faces = u["mesh_f"].shape[0]
+        cast = lambda chunk: raytrace.raycast(origins, dirs, u["mesh_v"], u["mesh_f"],
+                                              budget=chunk * 12 * n_faces)[1]
+        want = raytrace.raycast(origins, dirs, u["mesh_v"], u["mesh_f"])[1]
+        for chunk in (256, 1024, 4096, 16384):
+            cast(chunk)                                                # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                got = cast(chunk)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"ray cast chunk {chunk} changed the hits")
+            print(f"  ray cast, {dirs.shape[0]} rays x {n_faces} faces, chunk "
+                  f"{chunk}: {(time.perf_counter() - t0) / 3 * 1e3:.1f} ms (host clock around "
+                  f"synchronize, mean of 3; default chunk {raytrace.chunk_rays(n_faces)})")
+    errs.append(frame0_kernel_check(torch, simu, camera, "inference --exact_visibility frame 0"))
+
+    inset_traj = os.path.join(tmp, "traj_inset.pkl")
+    info = write_inference_inputs(out_root, inset_traj, name="garment_inset", nx=48, ny=48,
+                                  texture_size=TEXTURE, sh_degree=SH_DEGREE, width=WIDTH,
+                                  height=HEIGHT, n_frames=FRAMES, uv_inset=UV_INSET)
+    print(f"inset garment (UVs in [{UV_INSET}, {1 - UV_INSET}]): {info['n_texels']} of "
+          f"{TEXTURE * TEXTURE} texels alive")
+    dense_dir = os.path.join(tmp, "render_dense")
+    dense_argv = ["--traj_path", inset_traj, "--output_path", dense_dir] + argv[4:]
+    run_inference(torch, inference, dense_argv + ["--dense_texels"], "inference --dense_texels")
+    sims = {dense: Simulation(inset_traj, dense_dir, sh_degree=SH_DEGREE, texture_size=TEXTURE,
+                              dense_texels=dense, device=dev) for dense in (False, True)}
+    bg = torch.zeros(3, device=dev)
+    frame0 = lambda sim: render(camera, concat_bundle(*sim.forward(0, camera), SH_DEGREE),
+                                bg)["render"]
+    with torch.no_grad():
+        twice = [frame0(sims[False]) for _ in range(2)]
+        print(f"  inference frame 0, compact layout, rendered twice with cuDNN's default "
+              f"algorithms: equal bit for bit {torch.equal(*twice)}, max |difference| "
+              f"{float((twice[0] - twice[1]).abs().max()):.3g}")
+        with deterministic_cudnn(torch):
+            images = {dense: frame0(sim) for dense, sim in sims.items()}
+    same = torch.equal(images[True], images[False])
+    print(f"  inference frame 0, dense against compact layout (cuDNN deterministic): equal bit "
+          f"for bit: {same}")
+    check(same, "the dense inference render differs from the compact one")
+    errs.append(frame0_kernel_check(torch, sims[True], camera,
+                                    "inference --dense_texels frame 0"))
+    return max(errs)
 
 
 def read_logs(path):
@@ -678,7 +816,7 @@ def phase_s2_split(torch, dev, out_root):
         cot = cotangents(torch, dev, h, w, 5)
         errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
         timing = time_both(torch, tiles, proj, pairs, k, cot, h, w, what)
-    return errs, timing
+    return errs, timing, ms
 
 
 def phase_probes(torch):
@@ -724,8 +862,35 @@ def check_ladder_writes(out):
                                         f"to global memory, want {want}")
 
 
-def phase_s3(torch, dev, out_root):
-    """``s3_appearance.main`` on the stage-2 output root (see the module doc)."""
+def s3_argv(subject="subj", *flags):
+    """``s3_appearance``'s arguments for a run whose output root is
+    ``<output>/<subject>`` (the data stay those of ``subj``)."""
+    return S3_ARGS + ["-so", subject, *flags]
+
+
+def copy_stage2(out_root, subject, uv_inset=None):
+    """``<output>/subj`` less its stage 3, copied to ``<output>/<subject>``;
+    with ``uv_inset`` the template's UVs are inset and the cached bakes
+    dropped (they depend on the texel layout)."""
+    import shutil
+    from gaussian_garments_tpu_torch.data.synthetic import inset_uvs
+    from gaussian_garments_tpu_torch.utils.io import read_obj, write_obj
+
+    dst = os.path.join(out_root, subject)
+    shutil.copytree(os.path.join(out_root, "subj"), dst,
+                    ignore=lambda d, names: ["stage3"] if d == os.path.join(out_root, "subj")
+                    else ["texture"] if uv_inset is not None else [])
+    if uv_inset is not None:
+        path = os.path.join(dst, "stage1", "template_uv.obj")
+        template = read_obj(path)
+        write_obj(dict(template, uvs=inset_uvs(template["uvs"], uv_inset)), path)
+    return dst
+
+
+def phase_s3(torch, dev, out_root, subject="subj", flags=()):
+    """``s3_appearance.main`` on the stage-2 output root (see the module doc),
+    or on a copy of it in ``<output>/<subject>`` with ``flags``. Returns
+    (launches, step seconds by kind, peak device memory in bytes)."""
     import numpy as np
     from gaussian_garments_tpu_torch import s3_appearance
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
@@ -733,31 +898,32 @@ def phase_s3(torch, dev, out_root):
     from gaussian_garments_tpu_torch.training.checkpoints import (
         avatar_net_state_from_jax, load_s3_ckpt, s3_state_from_jax)
 
-    print(f"s3 cuts: {S3_CUTS}")
+    what = " ".join(["s3", *flags])
+    print(f"{what} cuts: {S3_CUTS}")
     tiles.composite_tiles_cuda.launches = 0
     tiles.composite_tiles_backward_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    stats = s3_appearance.main(S3_ARGS)
+    stats = s3_appearance.main(s3_argv(subject, *flags))
     wall = time.perf_counter() - t0
     launches = {"composite_fwd": tiles.composite_tiles_cuda.launches,
                 "composite_bwd": tiles.composite_tiles_backward_cuda.launches}
     peak = torch.cuda.max_memory_allocated(dev)
     steps = stats["steps"]
     n_steps = steps["pre"]["n"] + steps["full"]["n"]
-    print(f"s3 run: {stats['n_items']} training items, {stats['n_texels']} texel splats, "
+    print(f"{what} run: {stats['n_items']} training items, {stats['n_texels']} texel splats, "
           f"{n_steps} steps in {wall:.1f} s wall; launches " + ", ".join(
               f"{k} {v}" for k, v in launches.items()))
-    check(n_steps == S3_STEPS and steps["pre"]["n"] == S3_PRE, f"s3 steps {steps}")
+    check(n_steps == S3_STEPS and steps["pre"]["n"] == S3_PRE, f"{what} steps {steps}")
     check(launches["composite_bwd"] >= n_steps and launches["composite_fwd"] >= n_steps,
-          f"s3: kernels launched {launches} times for {n_steps} steps")
+          f"{what}: kernels launched {launches} times for {n_steps} steps")
 
-    stage3 = os.path.join(out_root, "subj", "stage3")
+    stage3 = os.path.join(out_root, subject, "stage3")
     expect = [os.path.join("ckpt", f) for f in ("net.pkl", "optm.pkl", "info.txt")]
     expect += [os.path.join("logs", "train.jsonl"), os.path.join("debug", "e01_i000000.png"),
                os.path.join("debug", "e05_i000020.png")]
     missing = [f for f in expect if not os.path.exists(os.path.join(stage3, f))]
-    check(not missing, f"missing s3 artifacts: {missing}")
+    check(not missing, f"missing {what} artifacts: {missing}")
     with open(os.path.join(stage3, "ckpt", "info.txt")) as f:
         check(f.read().strip() == "Epoch 5", "info.txt does not say Epoch 5")
     ck = load_s3_ckpt(stage3)
@@ -768,36 +934,37 @@ def phase_s3(torch, dev, out_root):
     check(ck["epoch"] == 5 and ck["iteration"] == n_steps and state.net_adam.step == n_steps
           and state.splat_adam.step == n_steps - S3_PRE, "checkpoint counters")
     check(state.splats.xyz.shape == (stats["n_texels"], 3), "checkpoint splats")
-    check(all(bool(torch.isfinite(v).all()) for v in state.net_params.values()),
-          "non-finite net weights in the checkpoint")
-    print(f"s3 checkpoint loads through the port: epoch {ck['epoch']}, iteration "
+    check(all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32
+              for v in state.net_params.values()),
+          "non-finite or non-float32 net weights in the checkpoint")
+    print(f"{what} checkpoint loads through the port: epoch {ck['epoch']}, iteration "
           f"{ck['iteration']}, AvatarNet {n_params} parameters, "
           f"{state.splats.xyz.shape[0]} splats")
 
     losses = stats["losses"]
     check(all(np.isfinite(v) for e in losses for k, v in e.items()
-              if k not in ("epoch", "it", "kind")), "non-finite s3 loss")
+              if k not in ("epoch", "it", "kind")), f"non-finite {what} loss")
     per_epoch = [np.mean([e["img"] for e in losses if e["epoch"] == ep]) for ep in range(1, 6)]
-    print("s3 img loss, mean per epoch: " + ", ".join(f"{v:.5f}" for v in per_epoch))
-    check(per_epoch[-1] < per_epoch[0], "s3: the img loss did not fall")
-    check(len(stats["eval"]) == 10, f"s3: {len(stats['eval'])} evals")
+    print(f"{what} img loss, mean per epoch: " + ", ".join(f"{v:.5f}" for v in per_epoch))
+    check(per_epoch[-1] < per_epoch[0], f"{what}: the img loss did not fall")
+    check(len(stats["eval"]) == 10, f"{what}: {len(stats['eval'])} evals")
     for q in stats["eval"]:
-        check(all(np.isfinite(v) for v in q.values()), f"s3 eval {q}")
+        check(all(np.isfinite(v) for v in q.values()), f"{what} eval {q}")
     for q in (stats["eval"][0], stats["eval"][-1]):
-        print(f"s3 eval at epoch {q['epoch']}, step {q['step']}: " + " ".join(
+        print(f"{what} eval at epoch {q['epoch']}, step {q['step']}: " + " ".join(
             f"{k}={v:.4f}" for k, v in q.items() if k.startswith("eval_")))
     for kind, m in steps.items():
-        print(f"s3 {kind} steps: {m['n']}, {m['seconds'] / m['n']:.4f} s/step (host clock, each "
-              f"step ends in a synchronize; item loading not included)")
-    print(f"s3 peak device memory: {peak / 2**30:.3f} GiB (max_memory_allocated)")
-    return launches
+        print(f"{what} {kind} steps: {m['n']}, {m['seconds'] / m['n']:.4f} s/step (host clock, "
+              f"each step ends in a synchronize; item loading not included)")
+    print(f"{what} peak device memory: {peak / 2**30:.3f} GiB (max_memory_allocated)")
+    return launches, {k: m["seconds"] / m["n"] for k, m in steps.items()}, peak
 
 
-def phase_s3_split(torch, dev):
+def phase_s3_split(torch, dev, argv=S3_ARGS):
     """Device split of one stage-3 step at full width, from the trained
     checkpoint and the first training item, each piece on the host clock
     around synchronize (mean of 5); then both kernels at that shape against
-    their plain versions, timed."""
+    their plain versions, timed. Returns (errors, kernel timing, split ms)."""
     from torch.func import functional_call
     from gaussian_garments_tpu_torch import s3_appearance
     from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
@@ -809,7 +976,7 @@ def phase_s3_split(torch, dev):
     from gaussian_garments_tpu_torch.training import s3 as S3
     from gaussian_garments_tpu_torch.utils.losses import ssim
 
-    _, run = s3_appearance.prepare(S3_ARGS)
+    _, run = s3_appearance.prepare(argv)
     check(run.start_epoch == 6, "the s3 checkpoint did not resume")
     state, bind, mesh_f, net = run.state, run.bind, run.mesh_f, run.net
     item = run.make_item([run.dataset[0]])
@@ -836,15 +1003,15 @@ def phase_s3_split(torch, dev):
         net_in = (item.ambient[0], item.normal[0], item.world_view[0], item.campos[0], bind,
                   mesh_v, mesh_f, frames)
         timed("AvatarNet (StyleUNet) fwd+bwd", lambda: torch.autograd.grad(functional_call(
-            net, (params, state.net_buffers), net_in, {"rows": rows}).square().mean(),
-            list(params.values()), allow_unused=True))
+            net, S3._cast_net_vars(net, (params, state.net_buffers)), net_in,
+            {"rows": rows}).square().mean(), list(params.values()), allow_unused=True))
         timed("visibility (256² depth test)", lambda: AG.get_visible_mask_depth(
             bind, mesh_v, mesh_f, item.world_view[0], item.full_proj[0], image_width=256,
             image_height=256, rows=rows))
         with torch.no_grad():
-            bundle, vis, _ = S3._s3_project(net, (state.net_params, state.net_buffers),
-                                            state.splats, bind, mesh_f, item, 0,
-                                            sh_degree=SH_DEGREE)
+            bundle, vis, _ = S3._s3_project(
+                net, S3._cast_net_vars(net, (state.net_params, state.net_buffers)),
+                state.splats, bind, mesh_f, item, 0, sh_degree=SH_DEGREE)
         proj = timed("projection", lambda: _project(
             bundle, item.world_view[0], item.full_proj[0], item.campos[0], width=w, height=h,
             tanfovx=item.tanfovx[0], tanfovy=item.tanfovy[0], scaling_modifier=1.0,
@@ -863,7 +1030,8 @@ def phase_s3_split(torch, dev):
             G.adam_step(state.splats, state.splats, state.splat_adam, lrs)))
         for kind, step in steps.items():
             timed(f"whole step, {kind}", lambda: step(state, bind, mesh_f, item))
-    print(f"s3 device split of one step at {w}x{h}, {run.n_texels} texel splats, "
+    print(f"s3 device split ({' '.join(argv[len(S3_ARGS):]) or 'f32'}) of one step at "
+          f"{w}x{h}, {run.n_texels} texel splats, "
           f"{int(vis.sum())} visible, {int(pairs.ranges[-1])} pairs, ms (mean of {reps}, host "
           f"clock around synchronize):")
     for k, v in ms.items():
@@ -879,12 +1047,259 @@ def phase_s3_split(torch, dev):
         cot = cotangents(torch, dev, h, w, 5)
         errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
         timing = time_both(torch, tiles, proj, pairs, k, cot, h, w, what)
-    return errs, timing
+    return errs, timing, ms
+
+
+def phase_s3_bf16(torch, dev, out_root, f32_run, f32_split):
+    """``s3_appearance --unet_bf16`` on a copy of phase 7's output, checked as
+    phase 8, and its device split beside the float32 one; then the float32
+    run's checkpoint rendered on a held-out item by the float32 and by the
+    bf16 net, all of its output and each part apart (``bf16_render_split``),
+    and the scene of the JAX package's bf16 record (``bf16_record_scene``).
+    Gates: on the trained checkpoint the bf16 ΔSH alone within 40 dB of the
+    float32 render, and the bf16 Δxyz alone within 1 dB of the whole bf16
+    render (the rest of the gap is Δxyz's rounding, which moves each splat by
+    up to its error; on a trained state the JAX package's bf16 render is as
+    far from its float32 render, ``tests/torch_bf16_trained.py``); on the
+    record scene the whole bf16 render within 40 dB."""
+    import numpy as np
+    from gaussian_garments_tpu_torch import s3_appearance
+
+    copy_stage2(out_root, "subj_bf16")
+    launches, secs, peak = phase_s3(torch, dev, out_root, "subj_bf16", ("--unet_bf16",))
+    errs, _, split = phase_s3_split(torch, dev, s3_argv("subj_bf16", "--unet_bf16"))
+    unet = "AvatarNet (StyleUNet) fwd+bwd"
+    print(f"s3 bf16 against f32: s/step pre {secs['pre']:.4f} / {f32_run[1]['pre']:.4f}, full "
+          f"{secs['full']:.4f} / {f32_run[1]['full']:.4f}; StyleUNet fwd+bwd {split[unet]:.3f} / "
+          f"{f32_split[unet]:.3f} ms; whole step pre {split['whole step, pre']:.3f} / "
+          f"{f32_split['whole step, pre']:.3f}, full {split['whole step, full']:.3f} / "
+          f"{f32_split['whole step, full']:.3f} ms; peak device memory {peak / 2**30:.3f} / "
+          f"{f32_run[2] / 2**30:.3f} GiB")
+
+    _, run = s3_appearance.prepare(S3_ARGS)
+    check(run.start_epoch == 6, "the float32 s3 checkpoint did not resume")
+    item = run.make_item([run.dataset.eval_item(0)])
+    q = bf16_render_split(torch, run.net, run.state, run.bind, run.mesh_f, item, native=True)
+    scale = float(torch.exp(run.state.splats.scaling).max(dim=1).values.median())
+    print(f"s3 render of held-out item {item.width}x{item.height} from the float32 run's "
+          f"checkpoint, bf16 net against float32 net: PSNR {q['bf16']['psnr']:.2f} dB, SSIM "
+          f"{q['bf16']['ssim']:.5f}; its Δxyz alone {q['dxyz']['psnr']:.2f} dB, its ΔSH alone "
+          f"{q['dsh']['psnr']:.2f} dB")
+    errs_of = lambda sfx: (f"Δxyz max {q['dxyz_err_max' + sfx]:.4g}, relative "
+                           f"{q['dxyz_err_rel' + sfx]:.4g}; ΔSH max {q['dsh_err_max' + sfx]:.4g}, "
+                           f"relative {q['dsh_err_rel' + sfx]:.4g}")
+    print(f"  texel rows: |Δxyz| mean {q['dxyz_mean']:.4g}, max {q['dxyz_max']:.4g} (splats' "
+          f"largest local scale, median {scale:.4g}); bf16 error of {errs_of('')}; the bf16 "
+          f"net without cuDNN: " + (errs_of("_native") if "dxyz_err_max_native" in q
+                                    else "not measured"))
+    check(all(np.isfinite(q[k]["psnr"]) for k in ("bf16", "dxyz", "dsh")),
+          "non-finite bf16 PSNR")
+    check(q["dsh"]["psnr"] >= 40.0,
+          f"the bf16 ΔSH alone only {q['dsh']['psnr']} dB from the float32 render")
+    check(abs(q["dxyz"]["psnr"] - q["bf16"]["psnr"]) <= 1.0,
+          f"the bf16 Δxyz alone {q['dxyz']['psnr']} dB, the whole bf16 output "
+          f"{q['bf16']['psnr']} dB: not Δxyz's gap")
+    q = bf16_record_scene(torch, dev)
+    print(f"s3 render of the JAX record's scene (scripts/quality_check.py: seeded float32 "
+          f"weights, splats at log-scale -6.5, {WIDTH}x{HEIGHT}): bf16 net against float32 net "
+          f"PSNR {q['psnr']:.2f} dB, SSIM {q['ssim']:.5f} (JAX on the TPU: 48.1 dB)")
+    check(q["psnr"] >= 40.0, f"bf16 render only {q['psnr']} dB from the float32 render")
+    return launches, errs
+
+
+def bf16_render_split(torch, net, state, bind, mesh_f, item, native=False):
+    """The eval render of ``item`` (one row) from ``state``'s weights with the
+    float32 net's shadow texture against renders with the bf16 net's: all of
+    it (``bf16``), only its Δxyz channels (``dxyz``: ΔSH the float32 net's),
+    only its ΔSH channels (``dsh``); ``image_metrics`` of each against the
+    float32 render. Also the texel rows' Δxyz and ΔSH, float32, and their
+    bf16 error (largest, and the norm of the error over the norm of the
+    value); with ``native`` the same errors of the bf16 net run without cuDNN
+    (PyTorch's own CUDA convolutions), as ``*_native``."""
+    from torch.func import functional_call
+    from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
+    from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
+    from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
+    from gaussian_garments_tpu_torch.training import s3 as S3
+    from gaussian_garments_tpu_torch.utils.quality import image_metrics
+
+    class FixedTexture(torch.nn.Module):
+        act_dtype = torch.float32
+
+        def __init__(self, tex):
+            super().__init__()
+            self.tex = tex
+
+        def forward(self, *args, **kwargs):
+            return self.tex
+
+    net_bf16 = AvatarNet(texture_size=net.texture_size, sh_degree=net.sh_degree,
+                         act_dtype=torch.bfloat16).to(item.image.device)
+    mesh_v = item.mesh_v[0]
+    frames = MG.compute_face_frames(mesh_v, mesh_f)
+    rows = MG.gather_frame_rows(frames, bind.binding, mesh_v, mesh_f)
+    net_in = (item.ambient[0], item.normal[0], item.world_view[0], item.campos[0], bind, mesh_v,
+              mesh_f, frames)
+    shadow = lambda n: functional_call(n, S3._cast_net_vars(n, (state.net_params,
+                                                                state.net_buffers)),
+                                       net_in, {"rows": rows})
+    with torch.no_grad():
+        a, b = shadow(net), shadow(net_bf16)
+        mixes = {"f32": a, "bf16": b, "dxyz": torch.cat([b[:3], a[3:]]),
+                 "dsh": torch.cat([a[:3], b[3:]])}
+        blank = state.replace(net_params={}, net_buffers={})
+        renders = {k: S3.make_s3_eval(FixedTexture(t), sh_degree=net.sh_degree)(
+            blank, bind, mesh_f, item)[0] for k, t in mixes.items()}
+        ref = torch.clamp(renders.pop("f32"), 0, 1)
+        out = {k: image_metrics(r, ref) for k, r in renders.items()}
+        texels = {"": b}
+        if native:
+            try:
+                with torch.backends.cudnn.flags(enabled=False):
+                    texels["_native"] = shadow(net_bf16)
+            except RuntimeError as e:    # a reading, not a check: say why it is missing
+                print(f"  the bf16 net without cuDNN did not run: {e}")
+        a = AG.gather_texture(bind, a)
+        out["dxyz_mean"], out["dxyz_max"] = float(a[:, :3].abs().mean()), float(a[:, :3].abs().max())
+        for suffix, t in texels.items():
+            e = AG.gather_texture(bind, t) - a
+            for name, c in (("dxyz", slice(0, 3)), ("dsh", slice(3, None))):
+                out[f"{name}_err_max{suffix}"] = float(e[:, c].abs().max())
+                out[f"{name}_err_rel{suffix}"] = float(e[:, c].norm() / a[:, c].norm())
+    return out
+
+
+def bf16_record_scene(torch, dev):
+    """The scene of the JAX package's bf16 record (``scripts/quality_check.py``,
+    ``psnr_unet_bf16_vs_f32``): a 48×48 sheet from its first camera, texture
+    512, SH 3, splats at log-scale −6.5 and opacity sigmoid(2), the StyleUNet
+    with seeded float32 weights; the bf16 net's render against the float32
+    net's."""
+    import numpy as np
+    from gaussian_garments_tpu_torch.data import synthetic as syn
+    from gaussian_garments_tpu_torch.data.baker import bake_textures
+    from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
+    from gaussian_garments_tpu_torch.models import gaussian as G
+    from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
+    from gaussian_garments_tpu_torch.training import s3 as S3
+
+    cams, verts, faces, uvs, _ = syn.make_scene(n_cams=1, nx=48, ny=48, width=WIDTH,
+                                                height=HEIGHT, device=dev)
+    bind, _ = AG.build_binding(uvs, faces, TEXTURE, device=dev)
+    n = bind.binding.shape[0]
+    rng = np.random.RandomState(0)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    splats = G.GaussianParams(
+        xyz=t(np.zeros((n, 3))), features_dc=t(rng.randn(n, 1, 3) * 0.1),
+        features_rest=t(np.zeros((n, (SH_DEGREE + 1) ** 2 - 1, 3))),
+        scaling=t(np.full((n, 3), -6.5)), rotation=t(np.tile([[1.0, 0, 0, 0]], (n, 1))),
+        opacity=t(np.full((n, 1), 2.0)))
+    amb, nrm = bake_textures(bind, verts, faces, n_samples=8)
+    mesh_f = torch.as_tensor(faces, device=dev)
+    c = cams[0]
+    with torch.no_grad():
+        vis = AG.get_visible_mask_depth(bind, t(verts), mesh_f, c.world_view_transform,
+                                        c.full_proj_transform, image_width=256,
+                                        image_height=256)
+    item = S3.S3Item(
+        image=c.original_image[None], mask=c.gt_alpha_mask[None], bg=t(np.zeros((1, 3))),
+        mesh_v=t(verts[None]), ambient=t(amb[None]), normal=t(nrm[None]),
+        world_view=c.world_view_transform[None], full_proj=c.full_proj_transform[None],
+        campos=c.camera_center[None], tanfovx=(c.tanfovx,), tanfovy=(c.tanfovy,),
+        vis=vis[None].to(torch.float32), width=WIDTH, height=HEIGHT)
+    net = AvatarNet(texture_size=TEXTURE, sh_degree=SH_DEGREE,
+                    generator=torch.Generator().manual_seed(0)).to(dev)
+    return bf16_render_split(torch, net, S3.init_state(net, splats), bind, mesh_f, item)[
+        "bf16"]
+
+
+def phase_s3_dense(torch, dev, out_root):
+    """``s3_appearance --dense_texels`` on a copy of phase 7's output with its
+    UVs inset (``UV_INSET``), checked as phase 8; then from that checkpoint,
+    in both layouts, on the first training item with cuDNN deterministic
+    (``deterministic_cudnn``): the render and every tile's pair count equal
+    bit for bit, one step's losses within 1e-4·|loss| + 1e-6; the whole step
+    timed (mean of 5, default cuDNN), and both kernels against their plain
+    versions at that shape."""
+    import numpy as np
+    from gaussian_garments_tpu_torch import s3_appearance
+    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.renderer import _project
+    from gaussian_garments_tpu_torch.training import s3 as S3
+
+    copy_stage2(out_root, "subj_inset", uv_inset=UV_INSET)
+    launches, secs, peak = phase_s3(torch, dev, out_root, "subj_inset", ("--dense_texels",))
+    runs = {dense: s3_appearance.prepare(s3_argv("subj_inset", *(
+        ["--dense_texels"] if dense else [])))[1] for dense in (False, True)}
+    items = {}
+    for dense, run in runs.items():
+        np.random.seed(0)                  # the same random background for both
+        items[dense] = run.make_item([run.dataset[0]])
+    alive = runs[True].bind.alive
+    print(f"s3 inset scene: {int(alive.sum())} of {alive.numel()} texels alive")
+    check(torch.equal(items[True].vis[0][alive], items[False].vis[0]),
+          "dense visibility differs at alive texels")
+    out, ms, losses = {}, {}, {}
+    reps = 5
+    for dense, run in runs.items():
+        item, state, net = items[dense], run.state, run.net
+        w, h = item.width, item.height
+        step = S3.make_s3_step(net, run.run_args, sh_degree=SH_DEGREE, train_gaussians=True)
+        with deterministic_cudnn(torch):
+            with torch.no_grad():
+                bundle, vis, _ = S3._s3_project(net, (state.net_params, state.net_buffers),
+                                                state.splats, run.bind, run.mesh_f, item, 0,
+                                                sh_degree=SH_DEGREE)
+                proj = _project(bundle, item.world_view[0], item.full_proj[0], item.campos[0],
+                                width=w, height=h, tanfovx=item.tanfovx[0],
+                                tanfovy=item.tanfovy[0], scaling_modifier=1.0, vis_mask=vis,
+                                screen_offset=None)
+                pairs = tiles.bin_pairs(proj, image_width=w, image_height=h)
+                render = S3.make_s3_eval(net, sh_degree=SH_DEGREE)(state, run.bind, run.mesh_f,
+                                                                  item)
+            losses[dense] = {k: float(v) for k, v in
+                             step(state, run.bind, run.mesh_f, item)[1].items()}
+        out[dense] = (proj, pairs, render)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(state, run.bind, run.mesh_f, item)
+        torch.cuda.synchronize()
+        ms[dense] = (time.perf_counter() - t0) * 1e3 / reps
+    counts = {d: o[1].ranges[1:] - o[1].ranges[:-1] for d, o in out.items()}
+    same_pairs = torch.equal(counts[True], counts[False])
+    same_render = torch.equal(out[True][2], out[False][2])
+    cam_name = runs[True].dataset[0]["camera"].image_name
+    print(f"s3 dense against compact, inset scene, item {cam_name} (cuDNN deterministic): pairs {int(out[True][1].ranges[-1])} / "
+          f"{int(out[False][1].ranges[-1])}, per-tile counts equal {same_pairs}, render equal bit "
+          f"for bit {same_render}; whole full step (default cuDNN) "
+          f"{ms[True]:.3f} / {ms[False]:.3f} ms (mean of {reps}, host clock around synchronize); "
+          f"driver s/step pre {secs['pre']:.4f}, full {secs['full']:.4f}, peak "
+          f"{peak / 2**30:.3f} GiB")
+    for k, a in losses[False].items():
+        b = losses[True][k]
+        print(f"  {k}: dense {b:.7g}, compact {a:.7g}")
+        check(abs(a - b) <= 1e-4 * abs(a) + 1e-6, f"dense {k} loss {b} against compact {a}")
+    check(same_pairs and same_render, "the dense render differs from the compact one")
+    proj, pairs, _ = out[True]
+    w, h = items[True].width, items[True].height
+    with torch.no_grad():
+        k = tiles.composite_tiles_cuda(pairs, image_height=h, image_width=w)
+        p = tiles.composite_tiles_plain(pairs, image_height=h, image_width=w)
+        live = proj.radii > 0
+        what = f"s3 --dense_texels shape @ {w}x{h}"
+        errs = {"composite_fwd": compare_fwd(
+            torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
+        errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cotangents(
+            torch, dev, h, w, 9), h, w, 1e-4, what)
+    check(np.isfinite(list(errs.values())).all(), "non-finite kernel errors")
+    return launches, errs
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -920,11 +1335,20 @@ def main() -> int:
         errs = phase_kernel_checks(torch, dev)
         phase_bench_shape(torch, dev)
         probe_rows = phase_probes(torch)
-        phase_inference(torch, dev, tmp, out_root)
+        traj, render_dir, inference_argv, inf_err = phase_inference(torch, dev, tmp, out_root)
+        t_new = time.perf_counter()
+        inf_err = max(inf_err, phase_inference_modes(torch, dev, tmp, out_root, traj, render_dir,
+                                                     inference_argv))
+        added = time.perf_counter() - t_new
         s2_launches = phase_s2(torch, dev, data_root, out_root)
-        s2_errs, _ = phase_s2_split(torch, dev, out_root)
-        s3_launches = phase_s3(torch, dev, out_root)
-        s3_errs, timing = phase_s3_split(torch, dev)
+        s2_errs = phase_s2_split(torch, dev, out_root)[0]
+        s3_run = phase_s3(torch, dev, out_root)
+        s3_launches = s3_run[0]
+        s3_errs, timing, split = phase_s3_split(torch, dev)
+        t_new = time.perf_counter()
+        bf16_launches, bf16_errs = phase_s3_bf16(torch, dev, out_root, s3_run, split)
+        dense_launches, dense_errs = phase_s3_dense(torch, dev, out_root)
+        added += time.perf_counter() - t_new
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(m for m in sys.modules
@@ -938,9 +1362,13 @@ def main() -> int:
         ms, plain_ms, bound_ms, bound_by = timing[name]
         check(s2_launches[name] > 0, f"{name} was not launched on the s2 path")
         check(s3_launches[name] > 0, f"{name} was not launched on the s3 path")
+        check(bf16_launches[name] > 0, f"{name} was not launched on the s3 --unet_bf16 path")
+        check(dense_launches[name] > 0, f"{name} was not launched on the s3 --dense_texels path")
+        max_err = max(errs[name], s2_errs[name], s3_errs[name], bf16_errs[name], dense_errs[name],
+                      inf_err if name == "composite_fwd" else 0.0)
         kernels.append({"name": name, "route": "cuda", "source": relpath(source),
                         "replaces": replaces, "launches": s3_launches[name],
-                        "max_abs_err": max(errs[name], s2_errs[name], s3_errs[name]), "ms": ms,
+                        "max_abs_err": max_err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, "floor_ms": None})
     for r in probe_rows:
@@ -952,6 +1380,8 @@ def main() -> int:
     registered = {r["name"].split("@")[0] for r in probe_rows} | {"composite_fwd", "composite_bwd"}
     check(registered == set(kcuda.KERNELS),
           f"kernels not driven: {set(kcuda.KERNELS) - registered}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, {added:.1f} s of it in the "
+          "phases of the bf16, dense and exact-visibility paths")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
 """AO + object-space-normal texture baker (host numpy).
 
-Port of ``gaussian_garments_tpu/data/baker.py`` (compact layout): smooth
+Port of ``gaussian_garments_tpu/data/baker.py``: smooth
 normals interpolated at each texel anchor, packed to [0,1], and ambient
 occlusion from 64 cosine-weighted hemisphere rays per texel cast against
 garment + occluders with the native BVH. The BVH is built once per bake and
-reused for every sample direction. Bakes are cached as .npz per frame.
+reused for every sample direction. A dense binding bakes its alive texels
+only, so both layouts give the same textures. Bakes are cached as .npz per
+frame.
 """
 from __future__ import annotations
 
@@ -63,6 +65,9 @@ def bake_textures(bind: AvatarBinding, mesh_v: np.ndarray, mesh_f: np.ndarray,
     gs_v = bind.gs_v.cpu().numpy()
     binding = bind.binding.cpu().numpy()
     bc = bind.gs_bc.cpu().numpy()
+    if bind.alive is not None:
+        a = bind.alive.cpu().numpy()
+        gs_u, gs_v, binding, bc = gs_u[a], gs_v[a], binding[a], bc[a]
 
     vn = vertex_normals(mesh_v, mesh_f)
     anchors = np.einsum("gk,gkc->gc", bc, mesh_v[mesh_f[binding]])

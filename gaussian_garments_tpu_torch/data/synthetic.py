@@ -6,7 +6,9 @@ Port of ``gaussian_garments_tpu/data/synthetic.py`` (``make_cloth_template``,
 machine without jax. The ground truth is rendered with the port's own tiled
 compositor. Plus ``make_splat_scene``, a seeded random splat scene for kernel
 checks, ``make_cull_scene``, screen-space splats aimed at the compositor's
-culls, and ``build_garment_splats``, the 150K-splat scene of ``bench.py``.
+culls, ``build_garment_splats``, the 150K-splat scene of ``bench.py``, and
+``inset_uvs``, which leaves texels outside the sheet's UV island (the sheet's
+own UVs fill [0, 1]², so every texel is alive).
 """
 from __future__ import annotations
 
@@ -33,6 +35,13 @@ def make_cloth_template(nx: int = 12, ny: int = 12, size: float = 1.0,
     faces = np.stack([np.stack([a, b, a + 1], 1), np.stack([a + 1, b, b + 1], 1)],
                      axis=1).reshape(-1, 3)
     return verts, faces.astype(np.int64), uvs
+
+
+def inset_uvs(uvs: np.ndarray, inset: float) -> np.ndarray:
+    """UVs scaled into [inset, 1 − inset]²: a border of ``inset`` texels on
+    each side lies outside the island (dead in the dense texel layout; about
+    36% of the texels at 0.1)."""
+    return (inset + (1.0 - 2.0 * inset) * np.asarray(uvs, np.float32)).astype(np.float32)
 
 
 def make_camera_ring(n: int = 8, radius: float = 2.0, height: float = 0.8,
@@ -242,13 +251,14 @@ def build_garment_splats(n: int, rng: np.random.RandomState):
 def write_inference_inputs(output_root, traj_path, *, name: str = "garment", nx: int = 48,
                            ny: int = 48, texture_size: int = 512, sh_degree: int = 3,
                            width: int = 940, height: int = 1280, n_frames: int = 3,
-                           seed: int = 0) -> dict:
+                           seed: int = 0, uv_inset: float = 0.0) -> dict:
     """Everything ``inference`` reads, for one synthetic garment:
     ``<output_root>/<name>/stage1/{template_uv.obj,cameras.json}``, a seeded
     ``stage3/ckpt/net.pkl`` in the JAX package's layout (random AvatarNet
     weights; texel splats as ``scripts/bench_inference.py`` makes them), and a
     trajectory pkl of a moving sheet in front of a larger body sheet. The
-    camera frames the garment to cover about 40% of the frame."""
+    camera frames the garment to cover about 40% of the frame. ``uv_inset``
+    > 0 insets the sheet's UVs (``inset_uvs``)."""
     import json
     import os
     import pickle
@@ -265,6 +275,8 @@ def write_inference_inputs(output_root, traj_path, *, name: str = "garment", nx:
 
     root = Path(output_root) / name
     verts, faces, uvs = make_cloth_template(nx, ny)
+    if uv_inset > 0:
+        uvs = inset_uvs(uvs, uv_inset)
     os.makedirs(root / "stage1", exist_ok=True)
     write_obj({"vertices": verts, "faces": faces, "uvs": uvs, "texture_faces": faces},
               root / "stage1" / "template_uv.obj")

@@ -1,10 +1,13 @@
 """Multi-garment inference model ("Doll") + simulated-trajectory dataset.
 
-Port of ``gaussian_garments_tpu/doll.py`` (reference ``inference.py:229-415``)
-with the depth-buffer joint visibility: per garment an AvatarNet forward
-drives its texel Gaussians on the simulated mesh; the garments' splats are
-concatenated with visibility as an opacity mask; the splat render is
-composited over a shaded body render with depth-correct occlusion.
+Port of ``gaussian_garments_tpu/doll.py`` (reference ``inference.py:229-415``):
+per garment an AvatarNet forward drives its texel Gaussians on the simulated
+mesh; the garments' splats are concatenated with visibility as an opacity
+mask; the splat render is composited over a shaded body render with
+depth-correct occlusion. The joint visibility is the depth-buffer test by
+default, or with ``exact_visibility`` the reference's per-splat first-hit ray
+cast over the merged garment scene (``joint_visibility``). Garments load in
+the compact or, with ``dense_texels``, the dense texel layout.
 
 Everything after the host bake runs on one ``device``, the card unless the
 caller passes ``device="cpu"``.
@@ -41,7 +44,7 @@ class Garment(NamedTuple):
 
 
 def load_garment(name: str, *, sh_degree: int = 3, texture_size: int = 512,
-                 device=None) -> Garment:
+                 dense_texels: bool = False, device=None) -> Garment:
     """AvatarSimulationModel + AvatarNet.load_ckpt (inference.py:238-246).
     ``device`` defaults to the card."""
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
@@ -52,7 +55,7 @@ def load_garment(name: str, *, sh_degree: int = 3, texture_size: int = 512,
     root = Path(DEFAULTS.output_root) / name
     template = read_obj(root / DEFAULTS.stage1 / "template_uv.obj")
     bind, _ = AG.build_binding(template["uvs"], template["texture_faces"], texture_size,
-                               device=device)
+                               dense=dense_texels, device=device)
     ckpt = load_s3_ckpt(root / DEFAULTS.stage3)
     net = AvatarNet(texture_size=texture_size, sh_degree=sh_degree)
     net.load_state_dict(avatar_net_state_from_jax(ckpt["net_params"], ckpt["net_buffers"]))
@@ -83,7 +86,7 @@ def update_garment(g: Garment, verts: torch.Tensor, ambient: torch.Tensor,
         "anchor": anchor,
         "rotation": MG.world_rotation(g.splats, g.bind.binding, frames, rows=rows),
         "scaling": MG.world_scaling(g.splats, g.bind.binding, frames, rows=rows),
-        "opacity": G.get_opacity(g.splats),
+        "opacity": AG.texel_opacity(g.bind, g.splats),
         "shs": shs,
         "raw_shs": G.get_features(g.splats),
         "style": style_rows.reshape(style_rows.shape[0], -1, 3),
@@ -99,6 +102,27 @@ def _merged_scene(updates: List[dict]):
         all_f.append(u["mesh_f"] + off)
         off += u["mesh_v"].shape[0]
     return torch.cat(all_v), torch.cat(all_f)
+
+
+def joint_visibility(updates: List[dict], campos: torch.Tensor) -> torch.Tensor:
+    """Per-splat visibility over the merged garment scene (inference.py:285-316):
+    the first hit of the camera→anchor ray must lie on the splat's own
+    garment. O(splats · faces) (``ops.raytrace.raycast``)."""
+    from gaussian_garments_tpu_torch.ops.raytrace import raycast
+
+    scene_v, scene_f = _merged_scene(updates)
+    dev = scene_f.device
+    geom_of_face = torch.cat([torch.full((u["mesh_f"].shape[0],), gi, device=dev)
+                              for gi, u in enumerate(updates)])
+    gs_geom = torch.cat([torch.full((u["anchor"].shape[0],), gi, device=dev)
+                         for gi, u in enumerate(updates)])
+    anchors = torch.cat([u["anchor"] for u in updates])
+    d = anchors - campos[None]
+    dirs = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+    _, pid = raycast(campos[None].expand_as(anchors), dirs, scene_v, scene_f)
+    hit_geom = torch.where(pid >= 0, geom_of_face[torch.clamp(pid, min=0)],
+                           torch.full_like(pid, -1))
+    return hit_geom == gs_geom
 
 
 def joint_visibility_depth(updates: List[dict], viewmatrix, projmatrix, *,
@@ -165,13 +189,16 @@ class Simulation:
     obstacle_faces, garment_names."""
 
     def __init__(self, traj_path: str, output_path: str, *, sh_degree: int = 3,
-                 texture_size: int = 512, device=None):
+                 texture_size: int = 512, exact_visibility: bool = False,
+                 dense_texels: bool = False, device=None):
         self.device = resolve_device(device)
+        self.exact_visibility = exact_visibility
         with open(traj_path, "rb") as f:
             self.pkl = pickle.load(f)
         self.garment_names = self.pkl["garment_names"]
         self.garments = [load_garment(n, sh_degree=sh_degree, texture_size=texture_size,
-                                      device=self.device) for n in self.garment_names]
+                                      dense_texels=dense_texels, device=self.device)
+                         for n in self.garment_names]
         self.output = Path(output_path)
         os.makedirs(self.output, exist_ok=True)
 
@@ -216,9 +243,15 @@ class Simulation:
         frame. Returns (updates, vis)."""
         vert_list, textures, _ = self.prepare_frame(idx)
         updates = self.device_updates(vert_list, textures, camera)
-        vis = joint_visibility_depth(updates, camera.world_view_transform,
-                                     camera.full_proj_transform)
-        return updates, vis
+        return updates, self.visibility(updates, camera)
+
+    def visibility(self, updates: List[dict], camera) -> torch.Tensor:
+        """The joint visibility this simulation was built for: the exact ray
+        cast or the depth-buffer test."""
+        if self.exact_visibility:
+            return joint_visibility(updates, camera.camera_center)
+        return joint_visibility_depth(updates, camera.world_view_transform,
+                                      camera.full_proj_transform)
 
     def device_updates(self, vert_list, textures, camera) -> List[dict]:
         dev = self.device

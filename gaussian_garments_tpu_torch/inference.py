@@ -8,18 +8,19 @@ it reads a ContourCraft pkl (``pred``, ``cloth_faces``, ``obstacle``,
 row of three panels ``shs | raw_shs | style``.
 
 Per frame: bake the AO and normal textures (host), run each garment's
-AvatarNet, compute depth-buffer joint visibility, rasterize the body and
-garment meshes, render the three splat panels (CUDA compositor on a GPU),
-composite, write the PNG.
+AvatarNet, compute the joint visibility (the depth-buffer test, or with
+``--exact_visibility`` the per-splat first-hit ray cast, timed as its own
+piece ``raycast_s``), rasterize the body and garment meshes, render the three
+splat panels (CUDA compositor on a GPU), composite, write the PNG.
+``--dense_texels`` loads the garments in the dense res² texel layout.
 
     python -m gaussian_garments_tpu_torch.inference --traj_path traj.pkl \\
         --output_path out [--device cuda] [--texture_size 512 --sh_degree 3 \\
-        --width 940 --height 1280]
+        --width 940 --height 1280] [--exact_visibility] [--dense_texels]
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is present; the CPU
 path (the compositor's plain torch version) runs only with ``--device cpu``.
-TF32 is turned off for the whole run. Not ported yet: ``--exact_visibility``
-and ``--dense_texels`` (see ROADMAP.md).
+TF32 is turned off for the whole run.
 """
 from __future__ import annotations
 
@@ -48,6 +49,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--width", type=int, default=940)
     parser.add_argument("--height", type=int, default=1280)
     parser.add_argument("--hq", action="store_true", help="3004x4092 output")
+    parser.add_argument("--exact_visibility", action="store_true",
+                        help="per-splat first-hit ray cast for joint visibility (the "
+                             "reference's, O(splats*faces)); default is the depth-buffer test")
+    parser.add_argument("--dense_texels", action="store_true",
+                        help="dense res^2 texel layout (reshapes instead of texture gathers)")
     parser.add_argument("--white_background", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cuda' raises when no GPU is present")
@@ -69,11 +75,17 @@ def load_camera(garment_name: str, args, device):
                                    device=device)
 
 
+def _synchronize(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 @torch.no_grad()
 def render_frame(simu, idx: int, camera, bg: torch.Tensor, sh_degree: int, cfg):
-    """One frame. Returns (uint8 row (H, 3W, 3) numpy, timings, garment coverage)."""
-    from gaussian_garments_tpu_torch.doll import (body_mask_and_image, composite,
-                                                  concat_bundle, joint_visibility_depth)
+    """One frame. Returns (uint8 row (H, 3W, 3) numpy, timings, garment
+    coverage); with exact visibility the timings hold the ray cast as
+    ``raycast_s``, apart from ``device_s``."""
+    from gaussian_garments_tpu_torch.doll import body_mask_and_image, composite, concat_bundle
     from gaussian_garments_tpu_torch.renderer import render
 
     t0 = time.perf_counter()
@@ -81,8 +93,15 @@ def render_frame(simu, idx: int, camera, bg: torch.Tensor, sh_degree: int, cfg):
     t1 = time.perf_counter()
     dev = simu.device
     updates = simu.device_updates(vert_list, textures, camera)
-    vis = joint_visibility_depth(updates, camera.world_view_transform,
-                                 camera.full_proj_transform)
+    raycast_s = None
+    if simu.exact_visibility:
+        _synchronize(dev)
+        tr = time.perf_counter()
+        vis = simu.visibility(updates, camera)
+        _synchronize(dev)
+        raycast_s = time.perf_counter() - tr
+    else:
+        vis = simu.visibility(updates, camera)
     body_v = torch.as_tensor(np.asarray(body_v_np, np.float32), device=dev)
     body_f = torch.as_tensor(np.asarray(body_f_np, np.int64), device=dev)
     body_mask, body_image = body_mask_and_image(
@@ -97,6 +116,9 @@ def render_frame(simu, idx: int, camera, bg: torch.Tensor, sh_degree: int, cfg):
     row = torch.cat(panels, dim=2).permute(1, 2, 0)
     row = torch.clamp(torch.round(row * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
     timings = {"bake_mesh_io_s": t1 - t0, "device_s": time.perf_counter() - t1}
+    if raycast_s is not None:
+        timings["device_s"] -= raycast_s
+        timings["raycast_s"] = raycast_s
     return row, timings, float(coverage)
 
 
@@ -111,7 +133,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     pin_full_f32()
 
     simu = Simulation(args.traj_path, args.output_path, sh_degree=args.sh_degree,
-                      texture_size=args.texture_size, device=device)
+                      texture_size=args.texture_size, exact_visibility=args.exact_visibility,
+                      dense_texels=args.dense_texels, device=device)
     camera = load_camera(simu.garment_names[0], args, device)
     bg = torch.tensor([1.0, 1, 1] if args.white_background else [0.0, 0, 0], device=device)
     cfg = RasterConfig()

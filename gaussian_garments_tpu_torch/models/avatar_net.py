@@ -17,6 +17,11 @@ Reference quirks kept verbatim:
 State-dict keys are the Flax parameter paths joined with dots
 (``shadow_net.conv_0.conv.weight``, ``viewdir_net.conv0_w``, buffers
 ``shadow_net.noise_0``...); ``training.checkpoints`` converts both ways.
+
+``act_dtype=torch.bfloat16`` (``s3_appearance --unet_bf16``) casts the UNet's
+inputs to bf16 and its output back to float32; the caller casts the weights
+(``training.s3._cast_net_vars``), as the JAX trainer does, so every op of the
+UNet, the modulation and demodulation included, runs in bf16.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
 from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
 from gaussian_garments_tpu_torch.models.appearance import get_embedder
-from gaussian_garments_tpu_torch.models.styleunet import SWGANUnet
+from gaussian_garments_tpu_torch.models.styleunet import SWGANUnet, _c
 
 
 class ViewdirNet(nn.Module):
@@ -44,15 +49,18 @@ class ViewdirNet(nn.Module):
             setattr(self, f"{name}_b", nn.Parameter(torch.zeros(o)))
 
     def forward(self, x):
-        x = F.leaky_relu(F.conv2d(x, self.conv0_w, self.conv0_b, stride=2, padding=1), 0.2)
+        x = F.leaky_relu(F.conv2d(x, self.conv0_w, self.conv0_b, stride=2, padding=1),
+                         _c(0.2, x.dtype))
         return F.conv2d(x, self.conv1_w, self.conv1_b, stride=2, padding=1)
 
 
 class AvatarNet(nn.Module):
-    def __init__(self, texture_size: int, sh_degree: int, generator=None):
+    def __init__(self, texture_size: int, sh_degree: int, generator=None,
+                 act_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.texture_size = texture_size
         self.sh_degree = sh_degree
+        self.act_dtype = act_dtype
         self.embedder, self.embedder_dim = get_embedder(input_dim=7)   # unused (:15)
         self.shadow_net = SWGANUnet(
             inp_size=texture_size, inp_ch=4, out_ch=(sh_degree + 1) ** 2 * 3 + 3,
@@ -76,14 +84,20 @@ class AvatarNet(nn.Module):
         rows9 = (MG.gather_frame_rows(frames, bind.binding) if rows is None else rows)[:, MG.FR_R]
         local_viewdir = MG.rows_rot_apply_t(rows9, dir_pp)
         uu_flat = bind.gs_u * res + bind.gs_u                       # the (u,u) quirk
-        vd_flat = local_viewdir.new_zeros((res * res, 3))
+        if bind.alive is not None:
+            # dense layout: dead texels write a dropped dummy row, so only
+            # alive texels land, as in the compact scatter
+            uu_flat = torch.where(bind.alive, uu_flat, res * res)
+        vd_flat = local_viewdir.new_zeros((res * res + 1, 3))
         vd_flat[uu_flat] = local_viewdir
-        viewdir_map = vd_flat.reshape(res, res, 3).permute(2, 0, 1)
-        view_feature = self.viewdir_net(viewdir_map[None])
+        viewdir_map = vd_flat[:res * res].reshape(res, res, 3).permute(2, 0, 1)
+        view_feature = self.viewdir_net(viewdir_map[None].to(self.act_dtype))
 
-        style = ambient.new_ones((1, res)) / float(res) ** 0.5
-        combined = torch.cat([ambient, nc], dim=0)[None]
-        return self.shadow_net(style, combined, view_feature=view_feature)[0]
+        style = ambient.new_ones((1, res), dtype=self.act_dtype) / _c(float(res) ** 0.5,
+                                                                      self.act_dtype)
+        combined = torch.cat([ambient, nc], dim=0)[None].to(self.act_dtype)
+        out = self.shadow_net(style, combined, view_feature=view_feature)
+        return out[0].to(torch.float32)
 
 
 def apply_shadow(bind: AG.AvatarBinding, params: G.GaussianParams,

@@ -13,10 +13,14 @@ Submodule and parameter names are the Flax names (``style_0``, ``conv_in``,
 ``from_rgb_0.conv.conv.weight``, ``to_rgb_4.bias``, ...), so a state_dict key
 is the Flax parameter path joined with dots. The fixed noise buffers
 (``noise_0``...) are buffers, loaded from the checkpoint. Convolutions are
-float32; the entry points turn TF32 off (``pin_full_f32``).
+float32 unless the caller casts the weights and inputs to bf16; the entry
+points turn TF32 off (``pin_full_f32``). Every Python constant that scales an
+activation or a weight is first rounded to that tensor's dtype (``_c``), as
+JAX rounds a weakly typed scalar: in bf16, ``x · √2`` is ``x · 1.4140625``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -28,10 +32,16 @@ from torch import nn
 BLUR = (1, 3, 3, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _c(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (a no-op change for float32)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def fused_leaky_relu(x, bias=None, negative_slope=0.2, scale=2 ** 0.5):
     if bias is not None:
         x = x + bias.reshape((1, -1) + (1,) * (x.ndim - 2))
-    return F.leaky_relu(x, negative_slope) * scale
+    return F.leaky_relu(x, _c(negative_slope, x.dtype)) * _c(scale, x.dtype)
 
 
 def make_kernel(k) -> np.ndarray:
@@ -95,13 +105,14 @@ class EqualLinear(nn.Module):
         self.activation = activation
 
     def forward(self, x):
-        out = x @ (self.weight * self.scale).T
+        dt = self.weight.dtype
+        out = x @ (self.weight * _c(self.scale, dt)).T
         if self.bias is not None:
             if self.activation:
-                return fused_leaky_relu(out, self.bias * self.lr_mul)
-            return out + self.bias * self.lr_mul
+                return fused_leaky_relu(out, self.bias * _c(self.lr_mul, dt))
+            return out + self.bias * _c(self.lr_mul, dt)
         if self.activation:
-            return F.leaky_relu(out, 0.2) * 2 ** 0.5
+            return fused_leaky_relu(out)
         return out
 
 
@@ -115,7 +126,8 @@ class EqualConv2d(nn.Module):
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        out = F.conv2d(x, self.weight * self.scale, stride=self.stride, padding=self.padding)
+        out = F.conv2d(x, self.weight * _c(self.scale, self.weight.dtype), stride=self.stride,
+                       padding=self.padding)
         if self.bias is not None:
             out = out + self.bias.reshape(1, -1, 1, 1)
         return out
@@ -133,10 +145,10 @@ class ModulatedConv2d(nn.Module):
 
     def forward(self, x, style):
         s = self.modulation(style)                                   # (B,in)
-        wk = self.weight * self.scale
+        wk = self.weight * _c(self.scale, self.weight.dtype)
         if self.demodulate:
             wmod = wk[None] * s[:, None, :, None, None]
-            dcoef = torch.rsqrt(torch.sum(wmod ** 2, dim=(2, 3, 4)) + 1e-8)
+            dcoef = torch.rsqrt(torch.sum(wmod ** 2, dim=(2, 3, 4)) + _c(1e-8, wmod.dtype))
         x = x * s[:, :, None, None]
         if self.upsample:
             out = F.conv_transpose2d(x, wk.transpose(0, 1), stride=2)
@@ -315,7 +327,8 @@ class SWGANUnet(nn.Module):
         self.n_comb = n_comb
 
     def forward(self, style, condition_img, view_feature: Optional[torch.Tensor] = None):
-        s = style * torch.rsqrt(torch.mean(style ** 2, dim=1, keepdim=True) + 1e-8)  # PixelNorm
+        s = style * torch.rsqrt(torch.mean(style ** 2, dim=1, keepdim=True)
+                                + _c(1e-8, style.dtype))                           # PixelNorm
         for i in range(self.n_mlp):
             s = getattr(self, f"style_{i}")(s)
         latent = s[:, None, :].expand(-1, self.n_latent, -1)

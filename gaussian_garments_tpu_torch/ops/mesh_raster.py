@@ -97,3 +97,14 @@ def rasterize_mesh(verts: torch.Tensor, faces: torch.Tensor, viewmatrix: torch.T
         return x.reshape(tiles_y * tile_size, tiles_x * tile_size)[:image_height, :image_width]
 
     return untile(face_out), untile(z_out)
+
+
+def visible_faces(verts: torch.Tensor, faces: torch.Tensor, viewmatrix: torch.Tensor,
+                  projmatrix: torch.Tensor, *, image_width: int, image_height: int,
+                  **kw) -> torch.Tensor:
+    """(F,) bool: the face owns at least one pixel of the face-id buffer."""
+    pix_to_face, _ = rasterize_mesh(verts, faces, viewmatrix, projmatrix,
+                                    image_width=image_width, image_height=image_height, **kw)
+    flag = torch.zeros(faces.shape[0] + 1, dtype=torch.bool, device=verts.device)
+    flag[torch.where(pix_to_face >= 0, pix_to_face, faces.shape[0]).reshape(-1)] = True
+    return flag[:-1]

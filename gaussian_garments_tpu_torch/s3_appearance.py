@@ -17,9 +17,10 @@ the net and splats at the next epoch, as the JAX package's ``s3_appearance.py`` 
 ``--device`` defaults to ``cuda`` and raises when no GPU is present; only
 ``--device cpu`` runs the compositor's plain torch version. TF32 is off for
 the whole run. The per-item visibility is a constant of the item and is
-cached across epochs, packbits'd. Not ported yet (they raise):
-``--data_parallel``, ``--dense_texels``, ``--unet_bf16`` and
-``--ckpt_backend orbax``.
+cached across epochs, packbits'd. ``--unet_bf16`` runs the StyleUNet in bf16
+over float32 master weights; ``--dense_texels`` trains the dense res² texel
+layout, and a checkpoint of either layout resumes into either. Not ported yet
+(they raise): ``--data_parallel`` and ``--ckpt_backend orbax``.
 
 ``main`` returns a stats dict: per step kind (``pre``: net only; ``full``:
 net and splats) the steps and wall seconds (each step ends in a device
@@ -40,7 +41,7 @@ import torch
 
 from gaussian_garments_tpu_torch import resolve_device
 
-NOT_PORTED = ("data_parallel", "dense_texels", "unet_bf16")
+NOT_PORTED = ("data_parallel",)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -65,8 +66,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--blur_mask", action="store_true")
     parser.add_argument("--llffhold", type=int, default=12)
     parser.add_argument("--items_per_step", type=int, default=1)
-    parser.add_argument("--dense_texels", action="store_true", help="not ported yet")
-    parser.add_argument("--unet_bf16", action="store_true", help="not ported yet")
+    parser.add_argument("--dense_texels", action="store_true",
+                        help="dense res^2 texel layout with an alive mask: texture gathers and "
+                             "scatters become reshapes")
+    parser.add_argument("--unet_bf16", action="store_true",
+                        help="bf16 UNet activations over float32 master weights")
     parser.add_argument("--data_parallel", action="store_true", help="not ported yet")
     parser.add_argument("--eval_only", action="store_true",
                         help="load the checkpoint, run the held-out PSNR/SSIM eval, print one "
@@ -88,11 +92,12 @@ def _save_debug_textures(net, state, bind, mesh_f, item, stage3_path: Path, epoc
     from torch.func import functional_call
 
     from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
+    from gaussian_garments_tpu_torch.training.s3 import _cast_net_vars
     from gaussian_garments_tpu_torch.utils.io import save_image
 
     with torch.no_grad():
         frames = MG.compute_face_frames(item.mesh_v[0], mesh_f)
-        out = functional_call(net, (state.net_params, state.net_buffers), (
+        out = functional_call(net, _cast_net_vars(net, (state.net_params, state.net_buffers)), (
             item.ambient[0], item.normal[0], item.world_view[0], item.campos[0], bind,
             item.mesh_v[0], mesh_f, frames))
         drgb = out[3:6].abs()
@@ -147,7 +152,7 @@ def prepare(argv: Optional[Sequence[str]] = None):
 
     template = read_obj(Path(args.subject_out) / DEFAULTS.stage1 / "template_uv.obj")
     bind, _ = AG.build_binding(template["uvs"], template["texture_faces"], args.texture_size,
-                               device=device)
+                               dense=args.dense_texels, device=device)
     dataset = AvatarDataset(args, bind=bind, device=device)
     mesh_f = torch.as_tensor(np.asarray(template["faces"], np.int64), device=device)
 
@@ -158,7 +163,8 @@ def prepare(argv: Optional[Sequence[str]] = None):
                                       str(tmpl_pc / "local_point_cloud.ply"), args.sh_degree,
                                       device=device)
     net = AvatarNet(texture_size=args.texture_size, sh_degree=args.sh_degree,
-                    generator=torch.Generator().manual_seed(0)).to(device)
+                    generator=torch.Generator().manual_seed(0),
+                    act_dtype=torch.bfloat16 if args.unet_bf16 else torch.float32).to(device)
     state = S3.init_state(net, splats)
 
     # resume the net and the splats, as the JAX package's s3_appearance.py does

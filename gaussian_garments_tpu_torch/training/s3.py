@@ -16,9 +16,16 @@ state's parameter and buffer dicts, so the state holds the weights and the
 module only the computation; the dict keys are the Flax paths joined with
 dots (``training/checkpoints.py`` converts both ways).
 
+With a bf16 net (``AvatarNet(act_dtype=torch.bfloat16)``) the float
+parameters and buffers are cast to bf16 where the net is applied
+(``_cast_net_vars``); autograd through the cast hands float32 gradients to the
+float32 masters that Adam keeps. With a dense binding, dead texels get zero
+opacity and the hinges reduce over alive texels only, so the losses are the
+compact layout's.
+
 Not ported: the JAX package's ``make_s3_pair_counter`` and ``pair_budget``
-probing (the port allocates pairs exactly, so there is no budget to size),
-the data-parallel ``axis_name`` and bf16 UNet activations.
+probing (the port allocates pairs exactly, so there is no budget to size) and
+the data-parallel ``axis_name``.
 """
 from __future__ import annotations
 
@@ -104,7 +111,7 @@ def _s3_project(net, net_vars, splats: G.GaussianParams, bind: AG.AvatarBinding,
     anchor = AG.barycentric_3d(bind, mesh_v, mesh_f, rows=rows)
     bundle = SplatBundle(
         means3d=AG.avatar_world_xyz(local_xyz, bind, frames, anchor, rows=rows),
-        opacity=G.get_opacity(splats),
+        opacity=AG.texel_opacity(bind, splats),
         scales=MG.world_scaling(splats, bind.binding, frames, rows=rows),
         rotations=MG.world_rotation(splats, bind.binding, frames, rows=rows),
         shs=shs, active_sh_degree=sh_degree)
@@ -122,6 +129,7 @@ def _s3_forward_batch(net, net_vars, splats, bind, mesh_f, item: S3Item, *, sh_d
                       raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256)):
     """Every item rendered on a zero background, its own background blended
     as ``img + bg·(1 − α)``. Returns (rendered (B,3,H,W), local_xyz (B,G,3))."""
+    net_vars = _cast_net_vars(net, net_vars)
     rendered, local = [], []
     zero_bg = torch.zeros(3, device=item.image.device)
     for b in range(item.image.shape[0]):
@@ -137,6 +145,15 @@ def _s3_forward_batch(net, net_vars, splats, bind, mesh_f, item: S3Item, *, sh_d
     return torch.stack(rendered), torch.stack(local)
 
 
+def _cast_net_vars(net, net_vars):
+    """(params, buffers) with every float tensor cast to the net's
+    ``act_dtype`` (the noise buffers too); unchanged for a float32 net."""
+    if net.act_dtype == torch.float32:
+        return net_vars
+    return tuple({k: v.to(net.act_dtype) if v.is_floating_point() else v for k, v in d.items()}
+                 for d in net_vars)
+
+
 def _s3_losses(net, net_params, net_buffers, splats, bind, mesh_f, item: S3Item, args, *,
                sh_degree: int, raster_cfg: RasterConfig = RasterConfig(),
                vis_raster_hw=(256, 256)):
@@ -145,17 +162,24 @@ def _s3_losses(net, net_params, net_buffers, splats, bind, mesh_f, item: S3Item,
         net, (net_params, net_buffers), splats, bind, mesh_f, item, sh_degree=sh_degree,
         raster_cfg=raster_cfg, vis_raster_hw=vis_raster_hw)
     mask = item.mask if args.only_foreground_loss else None
+    if bind.alive is not None:
+        # dense layout: mean over the alive texels, as the compact layout's
+        a = bind.alive.to(torch.float32)
+        mean = lambda x: (x * a).sum() / torch.clamp(a.sum(), min=1.0) / (
+            x.shape[0] if x.ndim == 2 else 1.0)
+    else:
+        mean = torch.mean
     loss: Dict[str, torch.Tensor] = {
         "img": l1_loss(rendered, item.image, mask) * (1.0 - args.lambda_dssim),
         # the reference's quirk, kept: 1 - ssim·λ, not (1 - ssim)·λ
         "ssim": 1.0 - ssim(rendered, item.image, mask) * args.lambda_dssim,
         # hinges (s3_appearance.py:134-137): local xyz per item, scale and
         # opacity over the splats
-        "xyz": torch.relu(_safe_norm(local_xyz, -1) - args.threshold_xyz).mean()
+        "xyz": mean(torch.relu(_safe_norm(local_xyz, -1) - args.threshold_xyz))
         * args.lambda_xyz,
-        "scale": _safe_norm(torch.relu(torch.exp(splats.scaling) - args.threshold_scale),
-                            1).mean() * args.lambda_scale,
-        "opacity": torch.relu(args.threshold_opacity - G.get_opacity(splats)).mean()
+        "scale": mean(_safe_norm(torch.relu(torch.exp(splats.scaling) - args.threshold_scale),
+                                 1)) * args.lambda_scale,
+        "opacity": mean(torch.relu(args.threshold_opacity - G.get_opacity(splats)).reshape(-1))
         * args.lambda_opacity,
     }
     return sum(loss.values()), loss

@@ -1,7 +1,7 @@
 """Where the time of one stage-3 step goes, for the PyTorch port on one NVIDIA
 GPU.
 
-    python scripts/profile_torch_s3.py
+    python scripts/profile_torch_s3.py [--unet_bf16]
 
 Builds a stage-3 item at the width of ``chip_smoke.py``'s s3 phase: a
 synthetic 64×64 sheet (7,938 faces) bound at texture 512 (262,144 texel
@@ -13,7 +13,8 @@ warm-up steps, 3 steps timed on the host clock (the wall time per step), then
 3 steps under ``torch.profiler`` (the device time per step, the sum of every
 kernel's device time, and the kernels per step). Prints those, the device's
 busy share of the wall time, and a table of the ops that take the most
-device time. Imports nothing of JAX.
+device time. ``--unet_bf16`` runs the StyleUNet in bf16 over float32 master
+weights, as ``s3_appearance --unet_bf16`` does. Imports nothing of JAX.
 """
 import os
 import subprocess
@@ -30,7 +31,7 @@ from scripts.profile_torch_s2 import device_us, kernel_events  # noqa: E402
 W, H, NX, N_CAMS, TEXTURE, SH_DEGREE, WARM, REPS = 940, 1280, 64, 12, 512, 3, 5, 3
 
 
-def build(dev):
+def build(dev, act_dtype=torch.float32):
     """(net, state, bind, mesh_f, item, args) of the scene in the module doc."""
     from argparse import ArgumentParser, Namespace
 
@@ -71,7 +72,7 @@ def build(dev):
                                         item.full_proj[0], image_width=256, image_height=256)
     item.vis = vis[None].to(torch.float32)
     net = AvatarNet(texture_size=TEXTURE, sh_degree=SH_DEGREE,
-                    generator=torch.Generator().manual_seed(0)).to(dev)
+                    generator=torch.Generator().manual_seed(0), act_dtype=act_dtype).to(dev)
     parser = ArgumentParser()
     opt = OptimizationParams(parser).extract(parser.parse_args([]))
     args = Namespace(**{**vars(opt), "lr_init": 5e-4})
@@ -89,9 +90,11 @@ def main():
     from gaussian_garments_tpu_torch.training import s3 as S3
 
     pin_full_f32()
-    net, state, bind, mesh_f, item, args = build(torch.device("cuda", 0))
+    bf16 = "--unet_bf16" in sys.argv[1:]
+    net, state, bind, mesh_f, item, args = build(
+        torch.device("cuda", 0), torch.bfloat16 if bf16 else torch.float32)
     vis = item.vis[0]
-    print(f"{bind.binding.shape[0]} texel splats ({int(vis.sum())} visible), texture {TEXTURE}, "
+    print(f"StyleUNet in {'bf16' if bf16 else 'float32'}; {bind.binding.shape[0]} texel splats ({int(vis.sum())} visible), texture {TEXTURE}, "
           f"SH {SH_DEGREE}, {sum(v.numel() for v in state.net_params.values())} net "
           f"parameters, {W}x{H}")
 

@@ -299,8 +299,7 @@ def test_cli_drive_writes_the_layout(tmp_path):
     assert res.returncode == 0 and "Resumed from epoch 5" in res.stdout
 
 
-@pytest.mark.parametrize("flag", [["--dense_texels"], ["--unet_bf16"], ["--data_parallel"],
-                                  ["--ckpt_backend", "orbax"]])
+@pytest.mark.parametrize("flag", [["--data_parallel"], ["--ckpt_backend", "orbax"]])
 def test_cli_refuses_what_is_not_ported(flag):
     from gaussian_garments_tpu_torch import s3_appearance
 
