@@ -76,7 +76,23 @@ plain version):
    its checkpoint in both layouts: render and per-tile pair counts equal bit
    for bit, one step's losses within 1e-4·|loss| + 1e-6, the whole step timed,
    both kernels against their plain versions at that shape;
-9. the kernel summary line (``floor_ms``: the launch floor where the probe
+9. stage 1 at full width through
+   ``gaussian_garments_tpu_torch.s1_initialisation.main`` (``--skip_colmap``,
+   the default 256³ grid and 8,000-face remesh): an ellipsoid body of
+   semi-axes 0.18 × 0.12 × 0.85 m whose band 0.1 ≤ z ≤ 0.6 m is the garment,
+   12 cameras at 940×1280 with masks from the port's mesh rasterizer, a
+   planted ``fused.ply`` of 1,000,000 surface samples (1 mm noise) and 50,000
+   green background points. At 2 mm of noise the normals' MST orientation,
+   the JAX package's as the port's, flips part of the cloud inward and the
+   template fails; the phase prints that share on a 2 mm cloud each run. Every artifact is checked, and the template: faces
+   within 0.5–1.25× of 8,000, every vertex within 2 grid cells of the body and
+   of the band in z, every band sample within 3 cells of a template vertex.
+   Then ``poisson_indicator`` on the card against the CPU (χ within 1e-5 ×
+   max|χ|), ``parse_scan`` on two cameras (at most 0.1% of the labels
+   differ), the three ARAP terms at the s2 phase's shape (values and
+   gradients at rtol 1e-5), and the split of the run (host clock, a device
+   synchronize around each phase);
+10. the kernel summary line (``floor_ms``: the launch floor where the probe
    times one, else null), the card line and the result line.
 
 Iteration counts of phases 7 and 8 are cuts of the production schedule.
@@ -120,6 +136,14 @@ S3_CUTS = ("pre_train_iterations 3000 -> 10, save_iterations 3000 -> 20; s3_appe
 S3_STEPS, S3_PRE = 110, 10
 UV_INSET = 0.1   # the inset scenes of the dense-layout phases: ~36% dead texels
 PROBE_REPS = 20
+S1_AXES, S1_BAND = (0.18, 0.12, 0.85), (0.1, 0.6)   # body semi-axes, garment band in z (m)
+S1_CAMS, S1_POINTS, S1_GREEN, S1_NOISE = 12, 1_000_000, 50_000, 0.001
+S1_DEFECT_NOISE = 0.002         # the noise at which the normals' orientation fails
+S1_RES, S1_FACES = 256, 8000    # the JAX default grid 2^min(13, 8) and --remesh_faces
+S1_MESH = (68, 96)              # rings per half of z, segments around: the body mesh
+S1_CUTS = ("12 cameras (captures such as ActorsHQ's have 160); COLMAP is not run "
+           "(--skip_colmap, no COLMAP on the card's machine): fused.ply is planted; its noise "
+           "1 mm, since at 2 mm the normals' orientation fails (printed below)")
 
 
 @contextlib.contextmanager
@@ -286,6 +310,262 @@ def time_both(torch, tiles, proj, pairs, out, cot, h, w, what):
               f"count {wk['walked_evals'][name]} pixel-pair evaluations, bound "
               f"{wk['walked_bound_ms'][name]:.4f} ms")
     return {name: (ms, plain, wk[name][0], wk[name][1]) for name, (ms, plain) in res.items()}
+
+
+def ellipsoid_mesh(axes, rings, segments):
+    """A closed ellipsoid mesh with its vertex rings at z = k·c/rings (k from
+    −rings to rings), so that the band's edges at 0.1 and 0.6 m lie on rings."""
+    import numpy as np
+
+    a, b, c = axes
+    zs = np.linspace(-c, c, 2 * rings + 1)[1:-1]
+    r = np.sqrt(np.maximum(1.0 - (zs / c) ** 2, 0.0))
+    ph = 2 * np.pi * np.arange(segments) / segments
+    ring_v = np.stack([a * r[:, None] * np.cos(ph), b * r[:, None] * np.sin(ph),
+                       np.repeat(zs[:, None], segments, 1)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 0, -c]], ring_v, [[0, 0, c]]]).astype(np.float32)
+    n_r, top = len(zs), len(verts) - 1
+    at = lambda i, j: 1 + i * segments + j % segments
+    faces = [(0, at(0, j + 1), at(0, j)) for j in range(segments)]
+    faces += [(top, at(n_r - 1, j), at(n_r - 1, j + 1)) for j in range(segments)]
+    for i in range(n_r - 1):
+        for j in range(segments):
+            faces += [(at(i, j), at(i, j + 1), at(i + 1, j)),
+                      (at(i, j + 1), at(i + 1, j + 1), at(i + 1, j))]
+    return verts, np.asarray(faces, np.int64)
+
+
+def ellipsoid_samples(axes, n, rng):
+    """n area-uniform samples on the ellipsoid (rejection on the sphere's
+    map by the area element) and their outward unit normals."""
+    import numpy as np
+
+    a, b, c = axes
+    out, nrm = [], []
+    g_max = max(b * c, a * c, a * b)
+    while sum(len(o) for o in out) < n:
+        u = rng.randn(2 * n, 3)
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        g = np.sqrt((b * c * u[:, 0]) ** 2 + (a * c * u[:, 1]) ** 2 + (a * b * u[:, 2]) ** 2)
+        u = u[rng.rand(2 * n) < g / g_max]
+        out.append(u * np.array([a, b, c]))
+        m = u / np.array([a, b, c])
+        nrm.append(m / np.linalg.norm(m, axis=1, keepdims=True))
+    return np.concatenate(out)[:n], np.concatenate(nrm)[:n]
+
+
+def write_s1_capture(torch, dev, data_root, out_root, subject, rng):
+    """The stage-1 scene in the reference layout: ``S1_CAMS`` cameras at
+    WIDTH×HEIGHT around the body, RGB, foreground and garment masks from the
+    port's mesh rasterizer, and the planted fused cloud. Returns the
+    noise-free surface samples."""
+    import numpy as np
+    from gaussian_garments_tpu_torch.data.synthetic import fit_focal, make_camera_ring
+    from gaussian_garments_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from gaussian_garments_tpu_torch.utils.io import save_image, store_ply
+
+    verts, faces = ellipsoid_mesh(S1_AXES, *S1_MESH)
+    z = verts[faces].mean(1)[:, 2]
+    garment = torch.as_tensor((z > S1_BAND[0]) & (z < S1_BAND[1]), device=dev)
+    ring = dict(n=S1_CAMS, radius=2.5, height=0.4)
+    fx = fit_focal(verts, width=WIDTH, height_px=HEIGHT, cover=0.9, **ring)
+    cams = make_camera_ring(fx=fx, width=WIDTH, height_px=HEIGHT, device=dev, **ring)
+    seq = os.path.join(data_root, subject, "seq")
+    v_t, f_t = torch.as_tensor(verts, device=dev), torch.as_tensor(faces, device=dev)
+    cam_json, cover = {}, []
+    for k, cam in enumerate(cams):
+        name = f"Cam{k:03d}"
+        intr = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
+        extr = np.concatenate([cam.R.T, np.asarray(cam.T)[:, None]], axis=1)
+        cam_json[name] = {"intrinsics": intr.tolist(), "extrinsics": extr.tolist(), "ids": k}
+        with torch.no_grad():
+            p2f, _ = rasterize_mesh(v_t, f_t, cam.world_view_transform, cam.full_proj_transform,
+                                    image_width=WIDTH, image_height=HEIGHT)
+        fg = p2f >= 0
+        gm = fg & garment[p2f.clamp(min=0)]
+        shade = 0.3 + 0.4 * (p2f.clamp(min=0) % 7).to(torch.float32) / 6
+        fg, gm, shade = (x.cpu().numpy() for x in (fg, gm, shade))
+        cover.append(float(gm.mean()))
+        save_image(os.path.join(seq, name, "rgb_images", "00000.png"),
+                   np.stack([shade * fg] * 3, -1))
+        save_image(os.path.join(seq, name, "garment_masks", "00000.png"), gm.astype(np.float32))
+        save_image(os.path.join(seq, name, "foreground_masks", "00000.png"),
+                   fg.astype(np.float32))
+    with open(os.path.join(seq, "cameras.json"), "w") as f:
+        json.dump(cam_json, f)
+
+    surface, normals = ellipsoid_samples(S1_AXES, S1_POINTS, rng)
+    noisy = surface + normals * rng.randn(S1_POINTS, 1) * S1_NOISE
+    green = rng.rand(S1_GREEN, 3) * np.array([3.0, 3.0, 2.0]) - np.array([1.5, 1.5, 1.0])
+    colors = np.concatenate([np.full((S1_POINTS, 3), 128.0),
+                             np.tile([[20.0, 230.0, 20.0]], (S1_GREEN, 1))])
+    stage1 = os.path.join(out_root, subject, "stage1")
+    os.makedirs(stage1)
+    store_ply(os.path.join(stage1, "fused.ply"), np.concatenate([noisy, green]), colors)
+    print(f"s1 data: {S1_CAMS} cameras at {WIDTH}x{HEIGHT} (focal {fx:.1f} px), the body an "
+          f"ellipsoid of semi-axes {S1_AXES} m ({len(faces)} faces), the garment the band "
+          f"{S1_BAND[0]} <= z <= {S1_BAND[1]} m covering {min(cover):.3f}-{max(cover):.3f} of "
+          f"each frame; fused.ply: {S1_POINTS} surface samples with {S1_NOISE * 1e3:g} mm "
+          f"noise, grey, and {S1_GREEN} green background points")
+    return surface
+
+
+def phase_s1(torch, dev, data_root, out_root, card):
+    """Stage 1 at full width through ``s1_initialisation.main``, its
+    artifacts and template checked; the Poisson solve and ``parse_scan`` on
+    the card against the CPU; the ARAP terms at the s2 phase's shape on the
+    card against the CPU; the split."""
+    import numpy as np
+    from gaussian_garments_tpu_torch import s1_initialisation
+    from gaussian_garments_tpu_torch.stages import meshing, s1
+    from gaussian_garments_tpu_torch.utils.io import fetch_ply, read_obj
+    from scipy.spatial import cKDTree
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    surface = write_s1_capture(torch, dev, data_root, out_root, "body", np.random.RandomState(5))
+    print(f"s1 cuts: {S1_CUTS}")
+    # --grid_res unset: the driver's default grid, 2^min(13, 8) = S1_RES
+    result = s1_initialisation.main(["-s", "body", "-q", "seq", "--skip_colmap",
+                                     "--remesh_faces", str(S1_FACES),
+                                     "--device", "cuda" if dev.type == "cuda" else "cpu"])
+    stage1 = result["target_root"]
+    missing = [a for a in s1_initialisation.ARTIFACTS if a not in result["artifacts"]]
+    check(not missing, f"missing s1 artifacts: {missing}")
+    check(len(os.listdir(stage1 / "masks")) == S1_CAMS, "one exported mask per camera")
+
+    cloud = fetch_ply(stage1 / "point_cloud.ply").points.astype(np.float32)
+    cell = (cloud.max(0) - cloud.min(0)).max() / 0.8 / (S1_RES - 1)
+    scan, parser, tmpl = (read_obj(stage1 / n) for n in ("poisson.obj", "parser.obj",
+                                                          "template.obj"))
+    tv, tf = tmpl["vertices"], tmpl["faces"]
+    d_body, _ = cKDTree(surface).query(tv)
+    band = surface[(surface[:, 2] >= S1_BAND[0]) & (surface[:, 2] <= S1_BAND[1])]
+    # distance to the template's surface, sampled at 15 barycentric points per face
+    w = np.array([(i, j, 4 - i - j) for i in range(5) for j in range(5 - i)], np.float64) / 4
+    d_band, _ = cKDTree(np.einsum("sk,fkc->fsc", w, tv[tf]).reshape(-1, 3)).query(band)
+    lo, hi = S1_BAND[0] - 2 * cell, S1_BAND[1] + 2 * cell
+    print(f"s1 meshes: filtered cloud {len(cloud)} points, grid {S1_RES}^3 (cell "
+          f"{cell * 1e3:.3f} mm); scan {len(scan['vertices'])} vertices / "
+          f"{len(scan['faces'])} faces; garment cut {len(parser['vertices'])} vertices; "
+          f"template {len(tv)} vertices / {len(tf)} faces")
+    print(f"s1 template: faces {len(tf)} (limits {S1_FACES // 2}-{S1_FACES * 5 // 4}); "
+          f"largest vertex distance to the body {d_body.max() * 1e3:.3f} mm (limit "
+          f"{2 * cell * 1e3:.3f}); vertex z {tv[:, 2].min():.4f}-{tv[:, 2].max():.4f} m "
+          f"(limits {lo:.4f}-{hi:.4f}); largest distance from a band sample to the template "
+          f"{d_band.max() * 1e3:.3f} mm over {len(band)} samples (limit {3 * cell * 1e3:.3f})")
+    check(S1_FACES // 2 <= len(tf) <= S1_FACES * 5 // 4, f"template has {len(tf)} faces")
+    check(d_body.max() <= 2 * cell, "a template vertex lies off the body")
+    check(tv[:, 2].min() >= lo and tv[:, 2].max() <= hi, "a template vertex lies off the band")
+    check(d_band.max() <= 3 * cell, "the template leaves part of the band uncovered")
+
+    # the card against the CPU on the same inputs
+    normals = meshing.estimate_normals(cloud)
+    chi = {d.type: meshing.poisson_indicator(cloud, normals, res=S1_RES, device=d)[0]
+           for d in (dev, cpu)}
+    e_chi = float(np.abs(chi[dev.type] - chi["cpu"]).max()) / float(np.abs(chi["cpu"]).max())
+    print(f"s1 poisson_indicator at {S1_RES}^3, card against CPU: max |d chi| = "
+          f"{e_chi:.3g} x max |chi| (limit 1e-5)")
+    check(e_chi <= 1e-5, "chi differs between the card and the CPU")
+    labels = {}
+    for d in (dev, cpu):
+        cams, masks = s1.load_segmentation_inputs(stage1, device=d)
+        labels[d.type] = s1.parse_scan(scan["vertices"], scan["faces"], cams[:2], masks[:2],
+                                       device=d) > 0.5
+    n_diff = int((labels[dev.type] != labels["cpu"]).sum())
+    print(f"s1 parse_scan on 2 cameras, card against CPU: {n_diff} of {len(labels['cpu'])} "
+          f"labels differ (limit 0.1%), {int(labels['cpu'].sum())} in the garment")
+    check(n_diff <= 1e-3 * len(labels["cpu"]), "parse_scan labels differ")
+    arap_err = check_arap(torch, dev)
+    report_orientation_defect(np.random.RandomState(5))
+
+    split = result["split"]
+    order = ("export", "load_masks", "read_cloud", "filter", "normals", "splat", "fft_solve",
+             "iso", "surface_nets", "largest_component", "parse_scan", "remesh", "fps")
+    parts = []
+    for k in order:
+        t = split[k]
+        parts.append(f"{k} {sum(t):.3f}" + (f" ({len(t)} x, {min(t):.3f}-{max(t):.3f} each)"
+                                            if len(t) > 1 else ""))
+    print("s1 split, s (host clock, a device synchronize around each phase; fps is inside "
+          "remesh): " + ", ".join(parts) + f"; whole stage {result['seconds']:.3f}")
+    secs = time.perf_counter() - t_phase
+    print(f"s1 phase: {secs:.1f} s ({card})")
+    return secs, arap_err
+
+
+def report_orientation_defect(rng):
+    """The share of the normals that ``estimate_normals`` orients inward on
+    the phase's cloud with ``S1_DEFECT_NOISE`` of noise, filtered as
+    ``post_process`` filters it. Printed, not gated: the MST over Euclidean
+    weights, which the port copies from the JAX package, crosses between the
+    layers of a noisy shell, and each wrong edge flips a subtree."""
+    import numpy as np
+    from gaussian_garments_tpu_torch.stages import meshing, s1
+    from scipy.spatial import cKDTree
+
+    surface, normals = ellipsoid_samples(S1_AXES, S1_POINTS, rng)
+    noisy = surface + normals * rng.randn(S1_POINTS, 1) * S1_DEFECT_NOISE
+    pts, _ = s1.filter_green_and_outliers(noisy, np.full((S1_POINTS, 3), 0.5))
+    est = meshing.estimate_normals(pts.astype(np.float32))
+    inward = float(np.mean(np.einsum("ij,ij->i", est, normals[cKDTree(surface).query(pts)[1]])
+                           < 0))
+    print(f"s1 normals at {S1_DEFECT_NOISE * 1e3:g} mm of noise ({len(pts)} filtered points): "
+          f"{inward:.4f} of them point inward (a defect shared with the JAX package: the "
+          "template fails there)")
+
+
+def check_arap(torch, dev):
+    """The three ARAP terms at the s2 phase's shape (a 64×64 sheet, 7,938
+    faces, one splat per face, 20 neighbours; the sheet 0.1 m wide, so that
+    the exp(−2000·distance) weights of both graphs are not vanishingly small):
+    ``Scene.arap_cache`` on the card and on the CPU from one
+    ``post_each_frame``, values and gradients (xyz, rotation, vertices) at
+    rtol 1e-5, atol 1e-7."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from gaussian_garments_tpu_torch.data.synthetic import make_cloth_template
+    from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
+    from gaussian_garments_tpu_torch.scene import Scene
+
+    rng = np.random.RandomState(8)
+    vt, f, _ = make_cloth_template(S2_NX, S2_NX, size=0.1)
+    binding = np.arange(len(f))
+    xyz0 = (vt[f].mean(1) + rng.randn(len(f), 3) * 0.0002).astype(np.float32)
+    rot0 = rng.randn(len(f), 4).astype(np.float32)
+    xyz = (xyz0 + rng.randn(*xyz0.shape) * 0.0003).astype(np.float32)
+    rot = (rot0 + rng.randn(*rot0.shape) * 0.1).astype(np.float32)
+    mesh_v = (vt + rng.randn(*vt.shape) * 0.0003).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = Scene(SimpleNamespace(subject_out="", sequence=""), SimpleNamespace(device=d))
+        scene.post_each_frame(True, xyz0, rot0, vt, f, binding)
+        cache = scene.arap_cache()
+        t = lambda a: torch.as_tensor(a, device=d)
+        args = [t(a).requires_grad_(True) for a in (xyz, rot, mesh_v)]
+        dyn = MG.dynamic_3d_loss(cache, args[0], args[1], 0.7)
+        terms = {"gg": MG.gg_arap_loss(cache, args[0], args[1]),
+                 "gv": MG.gv_arap_loss(cache, args[0], args[1], args[2], t(f), t(binding)),
+                 "rigid": dyn["rigid"], "rot": dyn["rot"]}
+        out[d.type] = {k: [v.detach()] + [g if g is None else g.detach() for g in
+                                          torch.autograd.grad(v, args, allow_unused=True,
+                                                              retain_graph=True)]
+                       for k, v in terms.items()}
+    worst = 0.0
+    for k, vals in out[dev.type].items():
+        for i, (a, b) in enumerate(zip(vals, out["cpu"][k])):
+            if b is None:
+                check(a is None, f"ARAP {k}: gradient {i} only on the card")
+                continue
+            a = a.cpu()
+            err = float(((a - b).abs() - 1e-5 * b.abs()).max())
+            worst = max(worst, float((a - b).abs().max()))
+            check(err <= 1e-7, f"ARAP {k}: output {i} differs by {err} beyond rtol 1e-5")
+    print("s1 ARAP terms at " + f"{len(f)} splats x 20 neighbours, card against CPU: "
+          + ", ".join(f"{k} {float(v[0]):.6g}" for k, v in out["cpu"].items())
+          + f"; values and gradients within rtol 1e-5, atol 1e-7 (max |diff| {worst:.3g})")
+    return worst
 
 
 def phase_kernel_checks(torch, dev):
@@ -1349,6 +1629,7 @@ def main() -> int:
         bf16_launches, bf16_errs = phase_s3_bf16(torch, dev, out_root, s3_run, split)
         dense_launches, dense_errs = phase_s3_dense(torch, dev, out_root)
         added += time.perf_counter() - t_new
+        s1_secs = phase_s1(torch, dev, data_root, out_root, card)[0]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(m for m in sys.modules
@@ -1381,7 +1662,8 @@ def main() -> int:
     check(registered == set(kcuda.KERNELS),
           f"kernels not driven: {set(kcuda.KERNELS) - registered}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, {added:.1f} s of it in the "
-          "phases of the bf16, dense and exact-visibility paths")
+          f"phases of the bf16, dense and exact-visibility paths, {s1_secs:.1f} s in the stage-1 "
+          "phase")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,8 +18,10 @@ import torch
 
 from gaussian_garments_tpu_torch import resolve_device
 from gaussian_garments_tpu_torch.models.adam import adam_update, bias_corrections
-from gaussian_garments_tpu_torch.utils.general import inverse_sigmoid, knn_numpy
+from gaussian_garments_tpu_torch.utils.general import (get_expon_lr_func, inverse_sigmoid,
+                                                       knn_numpy)
 from gaussian_garments_tpu_torch.utils.quaternion import normalize as quat_normalize
+from gaussian_garments_tpu_torch.utils.quaternion import quat_to_rotmat
 from gaussian_garments_tpu_torch.utils.sh import rgb2sh
 
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
@@ -74,6 +76,13 @@ def get_opacity(p: GaussianParams) -> torch.Tensor:
 def get_features(p: GaussianParams) -> torch.Tensor:
     """(M, K, 3) concatenated SH coefficients, DC first."""
     return torch.cat([p.features_dc, p.features_rest], dim=1)
+
+
+def get_covariance(p: GaussianParams, scaling_modifier: float = 1.0) -> torch.Tensor:
+    """(M, 6) upper-triangular Σ = (R S)(R S)ᵀ (xx, xy, xz, yy, yz, zz)."""
+    from gaussian_garments_tpu_torch.ops.projection import build_cov3d
+
+    return build_cov3d(get_scaling(p), get_rotation(p), scaling_modifier)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +181,38 @@ def adam_step(params: GaussianParams, grads: GaussianParams, state: AdamState,
                                               GaussianParams(**new_v))
 
 
+def make_lr_schedules(opt, spatial_lr_scale: float):
+    """The reference LR groups (training_setup :156-170): xyz is scheduled,
+    the others constant. Returns a callable iteration → {field: lr}."""
+    xyz_sched = get_expon_lr_func(
+        lr_init=opt.position_lr_init * spatial_lr_scale,
+        lr_final=opt.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt.position_lr_delay_mult,
+        max_steps=opt.position_lr_max_steps)
+
+    def lrs(iteration):
+        return {"xyz": xyz_sched(iteration), "features_dc": opt.feature_lr,
+                "features_rest": opt.feature_lr / 20.0, "opacity": opt.opacity_lr,
+                "scaling": opt.scaling_lr, "rotation": opt.rotation_lr}
+
+    return lrs
+
+
+def add_densification_stats(aux: GaussianAux, screen_grad: torch.Tensor,
+                            radii: torch.Tensor) -> GaussianAux:
+    """Accumulate ‖∂L/∂mean2D‖ of the visible splats and track the largest
+    screen radius (reference ``add_densification_stats`` :410-412 and the
+    max_radii2D update of s2_registration.py:314-315)."""
+    visible = radii > 0
+    gnorm = torch.linalg.norm(screen_grad[:, :2], dim=-1, keepdim=True)
+    return aux.replace(
+        xyz_gradient_accum=aux.xyz_gradient_accum + torch.where(visible[:, None], gnorm,
+                                                                torch.zeros_like(gnorm)),
+        denom=aux.denom + visible[:, None].to(torch.float32),
+        max_radii2d=torch.maximum(aux.max_radii2d, torch.where(
+            visible, radii.to(torch.float32), torch.zeros_like(aux.max_radii2d))))
+
+
 # ---------------------------------------------------------------------------
 # host-side structural edits
 # ---------------------------------------------------------------------------
@@ -234,6 +275,75 @@ def _select(h: _HostGaussians, keep: np.ndarray) -> _HostGaussians:
     f = lambda d: {k: v[keep] for k, v in d.items()}
     return _HostGaussians(f(h.params), f(h.mu), f(h.nu), h.max_radii2d[keep],
                           h.grad_accum[keep], h.denom[keep])
+
+
+def densify_and_prune(params: GaussianParams, aux: GaussianAux, adam: AdamState, *,
+                      max_grad: float, min_opacity: float, extent: float,
+                      max_screen_size: Optional[float], percent_dense: float,
+                      rng: Optional[np.random.RandomState] = None, grow_capacity: float = 1.5,
+                      ) -> Tuple[GaussianParams, GaussianAux, AdamState, Dict[str, int]]:
+    """The reference densify_and_prune (:379-408) of the plain model as a
+    host-side edit. Split samples come from ``rng`` as in the JAX package,
+    so one seed gives the same splats in both. Returns the rebuilt (params,
+    aux, adam) on the params' device and the edit statistics; capacity is
+    kept if the splats fit, else grown by ``grow_capacity``."""
+    rng = rng or np.random.RandomState(0)
+    device = params.xyz.device
+    old_capacity = params.xyz.shape[0]
+    h = _compact(params, aux, adam)
+
+    grads = h.grad_accum / np.maximum(h.denom, 1e-12)
+    grads[~np.isfinite(grads)] = 0.0
+    scaling = np.exp(h.params["scaling"])
+    max_scale = scaling.max(axis=1)
+
+    # --- clone (small, under-reconstructed) ---
+    clone_mask = (np.linalg.norm(grads, axis=-1) >= max_grad) & (max_scale <= percent_dense * extent)
+    n_clone = int(clone_mask.sum())
+    if n_clone:
+        h = _cat(h, {k: h.params[k][clone_mask] for k in PARAM_NAMES})
+        grads = np.concatenate([grads, np.zeros((n_clone, 1), np.float32)])
+        scaling = np.exp(h.params["scaling"])
+        max_scale = scaling.max(axis=1)
+
+    # --- split (large, over-reconstructed); N=2 samples, prune originals ---
+    split_mask = (grads[:, 0] >= max_grad) & (max_scale > percent_dense * extent)
+    n_split = int(split_mask.sum())
+    if n_split:
+        N = 2
+        stds = np.repeat(scaling[split_mask], N, axis=0)
+        samples = rng.normal(0.0, 1.0, stds.shape).astype(np.float32) * stds
+        rots = quat_to_rotmat(torch.as_tensor(
+            np.tile(h.params["rotation"][split_mask], (N, 1)))).numpy()
+        new_xyz = np.einsum("nij,nj->ni", rots, samples) + np.tile(h.params["xyz"][split_mask], (N, 1))
+        new = {
+            "xyz": new_xyz.astype(np.float32),
+            "scaling": np.log(np.repeat(scaling[split_mask], N, axis=0) / (0.8 * N)).astype(np.float32),
+            "rotation": np.tile(h.params["rotation"][split_mask], (N, 1)),
+            "features_dc": np.tile(h.params["features_dc"][split_mask], (N, 1, 1)),
+            "features_rest": np.tile(h.params["features_rest"][split_mask], (N, 1, 1)),
+            "opacity": np.tile(h.params["opacity"][split_mask], (N, 1)),
+        }
+        n_before = h.params["xyz"].shape[0]
+        h = _cat(h, new)
+        keep = np.ones((h.params["xyz"].shape[0],), bool)
+        keep[:n_before] = ~split_mask
+        h = _select(h, keep)
+
+    # --- prune ---
+    prune = 1.0 / (1.0 + np.exp(-h.params["opacity"][:, 0])) < min_opacity
+    if max_screen_size:
+        prune |= h.max_radii2d > max_screen_size
+        prune |= np.exp(h.params["scaling"]).max(axis=1) > 0.1 * extent
+    n_prune = int(prune.sum())
+    h = _select(h, ~prune)
+
+    n = h.params["xyz"].shape[0]
+    capacity = old_capacity if n <= old_capacity else int(np.ceil(n * grow_capacity))
+    out = _repack(h, adam.step, capacity, device=device)
+    stats = {"n_clone": n_clone, "n_split": n_split, "n_prune": n_prune, "n_alive": n,
+             "capacity": capacity}
+    return (*out, stats)
 
 
 def reset_opacity(params: GaussianParams, adam: AdamState) -> Tuple[GaussianParams, AdamState]:

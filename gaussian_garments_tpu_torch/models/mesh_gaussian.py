@@ -2,8 +2,9 @@
 from a template and binding-aware densification.
 
 Port of ``gaussian_garments_tpu/models/mesh_gaussian.py`` (reference
-``scene/mesh_gaussian_model.py``), without the ARAP terms, which the s2 path
-does not call:
+``scene/mesh_gaussian_model.py``), with the ARAP regularizers
+(``gg_arap_loss``, ``gv_arap_loss``, ``dynamic_3d_loss``) as differentiable
+torch functions of an ``ArapCache``:
 
     xyz_world   = R_face @ xyz_local · s_face + face_center
     scale_world = exp(scaling_local) · s_face
@@ -18,7 +19,7 @@ the same splats in both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,3 +234,58 @@ def _guarded_prune(prune: np.ndarray, bind: np.ndarray, counter: np.ndarray):
     np.add.at(counter, bind[real_prune], -1)
     keep = ~real_prune
     return keep, bind[keep], counter
+
+
+# ---------------------------------------------------------------------------
+# ARAP regularizers (reference :381-417; caches built by the Scene)
+# ---------------------------------------------------------------------------
+
+class ArapCache(NamedTuple):
+    """Previous-frame quantities for the ARAP terms (scene/scene.py:160-181)."""
+
+    prev_rot: torch.Tensor            # (M,4) world rotations at t-1
+    prev_offset: torch.Tensor         # (M,k,3) neighbour offsets at t-1
+    neighbor_indices: torch.Tensor    # (M,k)
+    neighbor_weight: torch.Tensor     # (M,k)
+    prev_gv_offset: torch.Tensor      # (M,3,3) splat->face-vertex offsets at t-1
+    gv_neighbor_weight: torch.Tensor  # (M,3)
+
+
+def _rel_rot(prev_rot: torch.Tensor, curr_rot: torch.Tensor) -> torch.Tensor:
+    return quat_to_rotmat(prev_rot) @ quat_to_rotmat(curr_rot).transpose(-1, -2)
+
+
+def _rigid_term(rel: torch.Tensor, offset: torch.Tensor, prev_offset: torch.Tensor,
+                weight: torch.Tensor) -> torch.Tensor:
+    """mean √(w·|rel·offset − prev_offset|² + 1e-20) over (splat, neighbour)."""
+    in_prev = torch.einsum("mij,mkj->mki", rel, offset)
+    sq = ((in_prev - prev_offset) ** 2).sum(-1) * weight
+    return torch.sqrt(sq + 1e-20).mean()
+
+
+def gg_arap_loss(cache: ArapCache, xyz: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Gaussian-Gaussian ARAP (reference GG_ARAP_loss :381-391)."""
+    offset = xyz[cache.neighbor_indices] - xyz[:, None]              # (M,k,3)
+    return _rigid_term(_rel_rot(cache.prev_rot, rot), offset, cache.prev_offset,
+                       cache.neighbor_weight)
+
+
+def gv_arap_loss(cache: ArapCache, xyz: torch.Tensor, rot: torch.Tensor,
+                 mesh_v: torch.Tensor, mesh_f: torch.Tensor, binding: torch.Tensor) -> torch.Tensor:
+    """Gaussian-vertex ARAP (reference GV_ARAP_loss :393-402)."""
+    offset = mesh_v[mesh_f[binding]] - xyz[:, None]                  # (M,3,3)
+    return _rigid_term(_rel_rot(cache.prev_rot, rot), offset, cache.prev_gv_offset,
+                       cache.gv_neighbor_weight)
+
+
+def dynamic_3d_loss(cache: ArapCache, xyz: torch.Tensor, rot: torch.Tensor,
+                    lam: float) -> Dict[str, torch.Tensor]:
+    """Rigid + rotation-consistency pair (reference dynamic3DLoss :404-417)."""
+    rel = _rel_rot(cache.prev_rot, rot)
+    offset = xyz[cache.neighbor_indices] - xyz[:, None]
+    rigid = _rigid_term(rel, offset, cache.prev_offset, cache.neighbor_weight)
+    rel_quat = rotmat_to_quat(rel)
+    rot_term = torch.sqrt(
+        ((rel_quat[cache.neighbor_indices] - rel_quat[:, None]) ** 2).sum(-1)
+        * cache.neighbor_weight + 1e-20).mean()
+    return {"rigid": rigid * lam, "rot": rot_term * lam}

@@ -8,9 +8,9 @@ v_t ≈ 2·v_{t−1} − v_{t−2} plus the momentum rest-shape update), the kNN
 neighbour graphs ``post_each_frame`` keeps for the ARAP terms, and the on-disk
 artifact layout (point_cloud/frame_%05d/{local_point_cloud.ply,
 point_cloud.ply} + binding.pkl, meshes/frame_%05d.obj, cameras.json).
-
-Not ported yet: ``Scene.arap_cache`` (the ARAP terms) and
-``CrossScene.sparse_icp``, which nothing on the stage-2 path calls.
+``arap_cache`` hands those graphs to the ARAP terms on the dataloader's
+device; ``CrossScene.sparse_icp`` aligns the template to a sequence by ICP
+between two sparse COLMAP clouds.
 """
 from __future__ import annotations
 
@@ -153,6 +153,15 @@ class Scene:
         self.prev_offset = (self.prev_xyz[self.neighbor_indices]
                             - self.prev_xyz[:, None]).astype(np.float32)
 
+    def arap_cache(self) -> MG.ArapCache:
+        """The neighbour graphs of ``post_each_frame`` as tensors on the
+        dataloader's device."""
+        t = lambda a: torch.as_tensor(np.asarray(a), device=self.dataloader.device)
+        return MG.ArapCache(
+            prev_rot=t(self.prev_rot), prev_offset=t(self.prev_offset),
+            neighbor_indices=t(self.neighbor_indices), neighbor_weight=t(self.neighbor_weight),
+            prev_gv_offset=t(self.prev_gv_offset), gv_neighbor_weight=t(self.gv_neighbor_weight))
+
     def save(self, frame: int, params: G.GaussianParams, aux: G.GaussianAux,
              binding: np.ndarray, frames: MG.FaceFrames, template: bool = False):
         """World and local PLYs and the binding pickle of one frame
@@ -181,4 +190,41 @@ class Scene:
 
 class CrossScene(Scene):
     """Cross-sequence scene (reference crossScene): the driver reloads the
-    Template splats every frame."""
+    Template splats every frame; ``sparse_icp`` is the optional global
+    alignment of the first frame via a throwaway sparse COLMAP run
+    (cross_scene.py:145-187)."""
+
+    @staticmethod
+    def _clean_cloud(points: np.ndarray) -> np.ndarray:
+        """binary_to_o3d preprocessing (cross_scene.py:177-187): voxel
+        downsample + radius outlier removal."""
+        from gaussian_garments_tpu_torch.ops.icp import remove_radius_outliers, voxel_downsample
+
+        return remove_radius_outliers(voxel_downsample(points, 0.005), nb_points=5, radius=0.05)
+
+    def sparse_icp(self, template_vertices: np.ndarray, camera_model: str = "PINHOLE") -> np.ndarray:
+        """Globally align the template to this sequence's first frame by ICP
+        between the stage-1 sparse cloud and a fresh sparse COLMAP
+        reconstruction (cross_scene.py:145-175). Returns the moved vertices."""
+        import shutil
+
+        from gaussian_garments_tpu_torch.ops.icp import registration_icp, transform_points
+        from gaussian_garments_tpu_torch.stages import s1
+        from gaussian_garments_tpu_torch.utils.colmap import read_points3D_binary
+
+        stage1 = Path(self.subject_out) / DEFAULTS.stage1
+        src_xyz, _, _ = read_points3D_binary(stage1 / "sparse" / "points3D.bin")
+        source = self._clean_cloud(src_xyz)
+
+        source_root = Path(DEFAULTS.data_root) / self.args.subject / self.args.sequence
+        target_root = self.stage2_path() / "colmap"
+        remove_folder = not target_root.exists()
+        s1.prepare_dataset(source_root, target_root, camera_model, device=self.dataloader.device)
+        s1.colmap_recon(target_root, skip_dense=True)
+        tgt_xyz, _, _ = read_points3D_binary(target_root / "sparse" / "points3D.bin")
+        target = self._clean_cloud(tgt_xyz)
+
+        T = registration_icp(source, target, 10.0)
+        if remove_folder:
+            shutil.rmtree(target_root)
+        return transform_points(np.asarray(template_vertices, np.float64), T).astype(np.float32)

@@ -5,6 +5,8 @@ tqdm postfix dicts and debug renders, ``s2_registration.py:65-78,98-122``).
 - ``MetricLogger``: cumulative averages like the reference's logger, plus an
   append-only JSONL stream;
 - ``StepTimer``: wall-clock per-phase timing with exponential smoothing;
+- ``PhaseSplit``: host-clock seconds of each run of each phase, with a device
+  synchronize around each (the stage-1 split);
 - ``shaded_mesh_image`` and ``debug_panel``: GT | penalized mask | render |
   abs-diff | shaded mesh, the stage-2 saver's panel.
 
@@ -67,6 +69,35 @@ class StepTimer:
         dt = time.perf_counter() - t0
         self.avg[name] = dt if name not in self.avg else \
             (1 - self.alpha) * self.avg[name] + self.alpha * dt
+
+
+class PhaseSplit:
+    """Host-clock seconds of every run of each named phase. With a CUDA
+    ``device``, each phase starts and ends with a synchronize, so the
+    device work it queued counts in it. ``times[name]`` lists the runs."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self.times: Dict[str, list] = {}
+
+    def _sync(self):
+        if self.device is not None and self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+
+
+def phase(split: Optional[PhaseSplit], name: str):
+    """``split.phase(name)``, or a null context without a split."""
+    return contextlib.nullcontext() if split is None else split.phase(name)
 
 
 def shaded_mesh_image(verts, faces, camera, body_v=None, body_f=None) -> np.ndarray:
