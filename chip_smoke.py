@@ -92,7 +92,30 @@ plain version):
    differ), the three ARAP terms at the s2 phase's shape (values and
    gradients at rtol 1e-5), and the split of the run (host clock, a device
    synchronize around each phase);
-10. the kernel summary line (``floor_ms``: the launch floor where the probe
+10. data parallelism (``phase_data_parallel``), run before phase 9: (a) 2
+   gloo ranks, new processes on the one card (NCCL refuses two ranks on one
+   GPU; gloo stages CUDA tensors through the host), each with TF32 off:
+   stage 2's three modes at the Template state of phase 7 with a body 5 mm
+   under the sheet, each rank 2 of 4 cameras, and stage 3's two step kinds
+   from a fresh state at texture 512, SH 3, each rank 1 of 2 items, under
+   deterministic cuDNN; each held against the one-process step on the whole
+   batch (losses rtol 1e-4; s2 vertices and xyz atol 1e-6, the JAX tests';
+   accumulators rtol 1e-4, counts and radii exact; the net by Adam's rule,
+   99% of its entries within 1% of lr; the splats' gradients at rtol 1e-4,
+   atol 1e-4 × the largest), the ranks equal bit for bit after 3 steps, the
+   compositors' launches counted in each rank, and the gloo all-reduce of an
+   s3 step timed; (b) both drivers under ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1`` with ``--data_parallel`` (NCCL) against
+   the same run without it: a 6-iteration template run, and stage 3's epoch
+   5 from a fresh state saved at epoch 4, 2 items a step, ``--ckpt_backend
+   orbax``: the same artifacts, the first logged loss within 1e-4 and the
+   rest within 1e-2, the meshes atol 1e-5, and, over the entries either run
+   moved, the stage-3 parameters' median difference within 0.2 (the net) or
+   0.5 (the splats) of the median movement;
+11. the modules no driver runs (``phase_unused_modules``): the wavelet
+   ``Discriminator(512, img_channel=6)`` forward (batch 4) and ``lbs`` at
+   SMPL-X's shapes on the card against the CPU, timed;
+12. the kernel summary line (``floor_ms``: the launch floor where the probe
    times one, else null), the card line and the result line.
 
 Iteration counts of phases 7 and 8 are cuts of the production schedule.
@@ -100,7 +123,7 @@ Imports nothing of JAX. Every number it prints is measured in this run,
 except ``bound_ms``, which it computes from this run's inputs. Launch counts
 are zeroed just before each path is driven and read just after; the
 compositor kernels' ``launches`` in the summary are those of the stage-3 run,
-and every other path must launch them too. The time the phases of the bf16,
+and every other path must launch them too, the data-parallel ranks included. The time the phases of the bf16,
 dense and exact-visibility paths took is printed before the summary.
 """
 import contextlib
@@ -1576,6 +1599,405 @@ def phase_s3_dense(torch, dev, out_root):
     return launches, errs
 
 
+DP_WORLD, DP_TIMEOUT = 2, 420
+S2_DP_TEMPLATE = ["-tf", "0", "--first_frame_iterations", "4", "--ff_collision_iteration", "2",
+                  "--densify_from_iter", "100", "--eval", "--cameras_per_step",
+                  str(S2_PER_STEP)]
+S3_DP_FLAGS = ["--items_per_step", "2", "--ckpt_backend", "orbax"]
+# the s3 driver pair's parts at the median, as shares of what the entries moved
+# (tests/test_torch_data_parallel.py holds its 2-rank pair to the same)
+DRIVER_MEDIAN_PART = {"net": 0.2, "splats": 0.5}
+
+
+def within_adam_step(d, lr, what):
+    """A one-step difference of the net's parameters held by Adam's rule:
+    Adam moves every entry by up to lr whatever the size of its gradient, so
+    a near-zero gradient summed in another order (the backward kernel's
+    atomics, the ranks' partial means) can flip a step by 2·lr. Such flips
+    stay rare: 99% of the entries within 1% of lr."""
+    check(d["q99"] <= 0.01 * lr,
+          f"{what}: 99% of the entries within {d['q99']:.3g} (largest difference "
+          f"{d['abs']:.3g}), lr {lr:.3g}")
+
+
+def dp_s2_case(torch, dev, out_root, path):
+    """The trained Template state, 4 of frame 0's cameras and a body 5 mm
+    under the sheet, as a case file for ``rank_checks.s2_steps``."""
+    import pickle
+    from pathlib import Path
+
+    import numpy as np
+    from gaussian_garments_tpu_torch.parallel import rank_checks
+    from gaussian_garments_tpu_torch.config import DEFAULTS
+    from gaussian_garments_tpu_torch.data.readers import FrameDataloader
+    from gaussian_garments_tpu_torch.models import gaussian as G
+    from gaussian_garments_tpu_torch.models import mesh_model as MM
+    from gaussian_garments_tpu_torch.s2_registration import parse_args
+    from gaussian_garments_tpu_torch.scene import bind_collision_faces
+    from gaussian_garments_tpu_torch.training import s2 as S2
+    from gaussian_garments_tpu_torch.training.checkpoints import s2_state_to_jax
+    from gaussian_garments_tpu_torch.utils.io import read_obj
+
+    args, _, _ = parse_args(["-s", "subj", "-q", "seq"])
+    root = Path(out_root) / "subj"
+    args.subject_out = root
+    cams = FrameDataloader(args, device=dev).load_frame(0)[1:1 + S2_PER_STEP]
+    tmpl = root / DEFAULTS.stage2 / "Template"
+    params, aux = G.load_ply(str(tmpl / "local_point_cloud.ply"), 0, device=dev)
+    with open(tmpl / "binding.pkl", "rb") as f:
+        binding = pickle.load(f)
+    tem = read_obj(root / DEFAULTS.stage1 / "template_uv.obj")
+    v = read_obj(tmpl / "template.obj")["vertices"]
+    body_v = v - np.float32([0, 0, 0.005])
+    mesh = MM.init_body(MM.create(v, tem["faces"], device=dev), body_v, tem["faces"],
+                        bind_collision_faces(v, body_v, tem["faces"]))
+    state = S2.init_state(params, aux, binding, mesh)
+    np_ = lambda x: x.detach().cpu().numpy()
+    c = {"world_view": np.stack([np_(x.world_view_transform) for x in cams]),
+         "full_proj": np.stack([np_(x.full_proj_transform) for x in cams]),
+         "campos": np.stack([np_(x.camera_center) for x in cams]),
+         "image": np.stack([np_(x.original_image) for x in cams]),
+         "mask": np.stack([np_(x.gt_alpha_mask) for x in cams]),
+         "tanfovx": [x.tanfovx for x in cams], "tanfovy": [x.tanfovy for x in cams],
+         "width": cams[0].image_width, "height": cams[0].image_height}
+    lr = 1.6e-4
+    case = dict(state=s2_state_to_jax(state), cams=c, bg=np.zeros(3, np.float32), xyz_lr=lr,
+                vert_lr=lr)
+    return rank_checks.write_case(path, **case), case, int(state.aux.alive.sum())
+
+
+def phase_data_parallel(torch, dev, out_root):
+    """(a) The data-parallel steps of both stages on 2 gloo ranks, new
+    processes on the one card (NCCL refuses two ranks on one GPU; gloo stages
+    CUDA tensors through the host): s2's three modes at the full-width
+    Template state, each rank 2 of 4 cameras, and s3's two step kinds at
+    texture 512, SH 3, the full StyleUNet, each rank 1 of 2 items; each held
+    against the one-process step on all of the batch, and the ranks equal
+    bit for bit after 3 steps. (b) The drivers under ``torch.distributed.run
+    --nproc_per_node 1`` with ``--data_parallel`` (NCCL), held against the
+    same run without it: an s2 template run of 6 iterations, and s3's epoch 5
+    from a checkpoint at epoch 4 with 2 items a step and ``--ckpt_backend
+    orbax``. Returns the compositor launches of the ranks."""
+    import numpy as np
+    from gaussian_garments_tpu_torch import graft_entry, parallel, s3_appearance
+    from gaussian_garments_tpu_torch.parallel import rank_checks
+    from gaussian_garments_tpu_torch.ops import tiles
+    from gaussian_garments_tpu_torch.training import s3 as S3
+    from gaussian_garments_tpu_torch.training.checkpoints import s3_state_to_jax
+
+    work = tempfile.mkdtemp(prefix="dp_", dir=out_root)
+    launches = {"composite_fwd": 0, "composite_bwd": 0}
+    t_phase = time.perf_counter()
+
+    # (a) stage 2
+    t0 = time.perf_counter()
+    modes = (("template_p1", False), ("template_p2", True), ("seq", False))
+    path, case, n_splats = dp_s2_case(torch, dev, out_root, os.path.join(work, "s2.pkl"))
+    single = rank_checks.s2_steps(path, modes, 1, dev.type)
+    case["reference"] = {m: single[m]["states"][0] for m, _ in modes}
+    rank_checks.write_case(path, **case)
+    ranks = parallel.spawn(rank_checks.s2_steps, DP_WORLD, (path, modes, 3, dev.type, False),
+                           device=dev.type, timeout=DP_TIMEOUT)
+    print(f"dp s2: {DP_WORLD} gloo ranks on {dev.type}, {S2_PER_STEP // 2} "
+          f"of {S2_PER_STEP} cameras each at {case['cams']['width']}x{case['cams']['height']}, "
+          f"{n_splats} splats, {len(case['state']['mesh']['f'])} faces; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        print(f"dp s2 rank launches: " + ", ".join(f"{k} {v}" for k, v in r["launches"].items()))
+        check(dev.type != "cuda" or all(v >= 3 * 3 * S2_PER_STEP // 2
+                                        for v in r["launches"].values()),
+              f"dp s2: a rank launched {r['launches']}")
+        for k in launches:
+            launches[k] += r["launches"][k]
+    for mode, _ in modes:
+        r0, ref = ranks[0][mode], single[mode]
+        d = r0["diffs"]
+        loss, want = r0["metrics"][0]["loss"], ref["metrics"][0]["loss"]
+        print(f"dp s2 {mode}: loss {loss:.7g} (one process {want:.7g}); max |diff| after one "
+              "step: " + ", ".join(f"{k} {d[k]['abs']:.3g}" for k in
+                                   ("v", "params.xyz", "aux.xyz_gradient_accum", "aux.denom",
+                                    "aux.max_radii2d")))
+        check(abs(loss - want) <= 1e-4 * abs(want), f"dp s2 {mode}: loss {loss} vs {want}")
+        check(r0["losses"][0].keys() == ref["losses"][0].keys(), f"dp s2 {mode}: loss terms")
+        check(mode != "template_p2" or "collision" in r0["losses"][0], "no collision term")
+        # the JAX tests' atol on the vertices and the splats' xyz
+        check(d["v"]["abs"] <= 1e-6 and d["params.xyz"]["abs"] <= 1e-6,
+              f"dp s2 {mode}: vertices or xyz differ by more than 1e-6")
+        check(d["aux.xyz_gradient_accum"]["excess"] <= 1e-7, f"dp s2 {mode}: accumulators")
+        check(d["aux.denom"]["abs"] == 0 and d["aux.max_radii2d"]["abs"] == 0,
+              f"dp s2 {mode}: visibility counts or radii")
+        check(r0["digest"] == ranks[1][mode]["digest"] and r0["losses"] == ranks[1][mode]["losses"],
+              f"dp s2 {mode}: the ranks differ after 3 steps")
+        check(all(np.isfinite(x) for e in r0["losses"] for x in e.values()), "dp s2 loss")
+    print("dp s2: the ranks' states equal bit for bit after 3 steps of each mode")
+
+    # (a) stage 3
+    t0 = time.perf_counter()
+    # a fresh state (an empty --ckpt_path): on the trained checkpoint the splats'
+    # gradients sit at the backward's noise floor (on an H100, two one-process
+    # steps differed by 15% of the largest xyz gradient), where no reduction
+    # error could show
+    _, run = s3_appearance.prepare(S3_ARGS + ["--ckpt_path", os.path.join(work, "fresh")])
+    check(run.start_epoch == 1, "dp s3: the state did not start fresh")
+    item = run.make_item([run.dataset[0], run.dataset[1]])
+    np_ = lambda x: x.detach().cpu().numpy()
+    it = {k: np_(getattr(item, k)) for k in ("image", "mask", "bg", "mesh_v", "ambient",
+                                             "normal", "world_view", "full_proj", "campos",
+                                             "vis")}
+    it.update(tanfovx=list(item.tanfovx), tanfovy=list(item.tanfovy), width=item.width,
+              height=item.height)
+    from gaussian_garments_tpu_torch.utils.io import read_obj
+    from gaussian_garments_tpu_torch.config import DEFAULTS
+    tem = read_obj(os.path.join(out_root, "subj", DEFAULTS.stage1, "template_uv.obj"))
+    tree = s3_state_to_jax(run.state)
+    state_tree = {k: tree[k] for k in ("net_params", "net_buffers", "splats")}
+    # deterministic cuDNN: its default transposed convolution sums in a
+    # run-dependent order, which would blur the one-process spread. (A rank
+    # that runs cuDNN in TF32, a new process's default, puts its loss 1.3e-4
+    # off: parallel.spawn pins full float32 in each.)
+    s3_case = dict(state=state_tree, item=it, uvs=tem["uvs"], faces=tem["texture_faces"],
+                   texture_size=TEXTURE, sh_degree=SH_DEGREE, vis_hw=(256, 256),
+                   args={"lr_init": run.run_args.lr_init}, cudnn_deterministic=True)
+    check(np.array_equal(tem["texture_faces"], run.mesh_f.cpu().numpy()), "texture faces")
+    del run, item, tree
+    path3 = rank_checks.write_case(os.path.join(work, "s3.pkl"), **s3_case)
+    kinds = ("pre", "full")
+    single3 = rank_checks.s3_steps(path3, kinds, 1, dev.type)
+    s3_case["reference"] = {k: single3[k]["states"][0] for k in kinds}
+    rank_checks.write_case(path3, **s3_case)
+    del s3_case
+    ranks3 = parallel.spawn(rank_checks.s3_steps, DP_WORLD, (path3, kinds, 3, dev.type, False),
+                            device=dev.type, timeout=DP_TIMEOUT)
+    print(f"dp s3: {DP_WORLD} gloo ranks, 1 of 2 items each, texture {TEXTURE}, SH {SH_DEGREE}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    lrs = S3.splat_lrs(graft_entry.default_opt())
+    for r in ranks3:
+        print(f"dp s3 rank launches: " + ", ".join(f"{k} {v}" for k, v in r["launches"].items())
+              + f"; all-reduce of the step's gradient tree (gloo, CUDA tensors through the host) "
+              f"{r['allreduce_ms']:.2f} ms (mean of 5)")
+        check(dev.type != "cuda" or all(v >= 2 * 3 for v in r["launches"].values()),
+              f"dp s3: a rank launched {r['launches']}")
+        for k in launches:
+            launches[k] += r["launches"][k]
+    for kind in kinds:
+        r0, ref = ranks3[0][kind], single3[kind]
+        d = r0["diffs"]
+        loss, want = sum(r0["losses"][0].values()), sum(ref["losses"][0].values())
+        first = sorted(k for k in d if k.startswith("net."))[0]
+        print(f"dp s3 {kind}: loss {loss:.7g} (one process {want:.7g}); max |diff| after one "
+              f"step: net {d['net']['abs']:.3g} (99% within {d['net']['q99']:.3g}; first leaf "
+              f"{d[first]['abs']:.3g}), " + ", ".join(
+                  f"{k} {d['splats.' + k]['abs']:.3g} (99% within "
+                  f"{d['splats.' + k]['q99']:.3g}; gradient "
+                  f"{d['splat_mu.' + k]['abs']:.3g} of {d['splat_mu.' + k]['ref_max']:.3g})"
+                  for k in lrs))
+        check(abs(loss - want) <= 1e-4 * abs(want), f"dp s3 {kind}: loss {loss} vs {want}")
+        # every net leaf by Adam's rule, the first too: the JAX test's 1e-5 on
+        # the first leaf does not hold on the card, where that leaf is a bias
+        # whose near-zero gradient can flip a step (0.001 = 2·lr)
+        within_adam_step(d["net"], 5e-4, f"dp s3 {kind} net")
+        # the splats by their gradient, Adam's first moment: rtol 1e-4 and atol
+        # 1e-4 × its largest entry (the tests' port-against-JAX tolerance)
+        for k in lrs:
+            m = d["splat_mu." + k]
+            check(m["excess"] <= 1e-4 * m["ref_max"],
+                  f"dp s3 {kind} {k}: gradient off by {m['excess']:.3g} beyond rtol 1e-4, "
+                  f"the largest {m['ref_max']:.3g}")
+        check(r0["digest"] == ranks3[1][kind]["digest"], f"dp s3 {kind}: the ranks differ")
+    print("dp s3: the ranks' states equal bit for bit after 3 steps of each kind")
+
+    # (b) the drivers under torch.distributed.run, NCCL
+    dp_drivers(torch, dev, out_root, "nccl" if dev.type == "cuda" else "gloo", state_tree)
+    print(f"dp: launches by the ranks composite_fwd {launches['composite_fwd']}, composite_bwd "
+          f"{launches['composite_bwd']}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def torchrun(module, argv, what, backend):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    module argv``; fails the run unless it exits 0 and prints the backend."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", module, *argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=DP_TIMEOUT)
+    check(res.returncode == 0, f"{what}: exit {res.returncode}\n{res.stdout[-2000:]}\n"
+          f"{res.stderr[-4000:]}")
+    check(f"[data parallel] backend {backend}, world size 1" in res.stdout,
+          f"{what}: no {backend} group\n{res.stdout[-2000:]}")
+    print(f"{what}: exit 0 in {time.perf_counter() - t0:.1f} s; [data parallel] backend "
+          f"{backend}, world size 1")
+    return res.stdout
+
+
+def dp_drivers(torch, dev, out_root, backend, fresh):
+    """(b) of ``phase_data_parallel``. ``fresh``: the net and splats of a
+    fresh stage-3 state (numpy trees), from which the s3 runs start."""
+    import json
+
+    import numpy as np
+    from gaussian_garments_tpu_torch import graft_entry, s2_registration, s3_appearance
+    from gaussian_garments_tpu_torch.models import gaussian as G
+    from gaussian_garments_tpu_torch.training.checkpoints import load_s3_ckpt, save_s3_ckpt
+    from gaussian_garments_tpu_torch.training.s3 import splat_lrs
+    from gaussian_garments_tpu_torch.utils.io import read_obj
+
+    # s2: a template run as one process and under torchrun
+    for subject in ("subj_s2a", "subj_s2b"):
+        shutil.copytree(os.path.join(out_root, "subj", "stage1"),
+                        os.path.join(out_root, subject, "stage1"))
+    argv = lambda subject: ["-s", "subj", "-q", "seq", "-so", subject, *S2_DP_TEMPLATE,
+                            "--device", dev.type]
+    stats = s2_registration.main(argv("subj_s2a"))
+    torchrun("gaussian_garments_tpu_torch.s2_registration", argv("subj_s2b") + ["--data_parallel"],
+             "dp s2 driver under torch.distributed.run", backend)
+    a, b = (os.path.join(out_root, s, "stage2") for s in ("subj_s2a", "subj_s2b"))
+    files = lambda d: sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d)
+                             for f in fs)
+    check(files(a) == files(b), f"dp s2 driver artifacts differ: {files(a)} vs {files(b)}")
+    n = stats["frames"][0]["iterations"]
+    va, vb = (read_obj(os.path.join(d, "Template", "template.obj"))["vertices"] for d in (a, b))
+    pa, pb = (G.load_ply(os.path.join(d, "Template", "local_point_cloud.ply"), 0, device="cpu")[0]
+              for d in (a, b))
+    dv = float(np.abs(va - vb).max())
+    dx = float(np.abs(pa.xyz - pb.xyz).max())
+    logs = [[json.loads(x) for x in open(os.path.join(d, "seq", "logs", "frame_00000.jsonl"))
+             if '"img"' in x] for d in (a, b)]
+    print(f"dp s2 driver against one process: {len(files(a))} artifacts each, max |diff| "
+          f"vertices {dv:.3g}, splat xyz {dx:.3g} ({n} iterations); img loss "
+          + ", ".join(f"{x['img']:.6g}/{y['img']:.6g}" for x, y in zip(*logs)))
+    check(len(logs[0]) == len(logs[1]) > 0, "dp s2 driver logs")
+    for i, (x, y) in enumerate(zip(*logs)):
+        check(abs(x["img"] - y["img"]) <= (1e-4 if i == 0 else 1e-2) * abs(x["img"]),
+              f"dp s2 driver img loss {x['img']} vs {y['img']}")
+    # the CPU test's atol on the meshes (tests/test_torch_data_parallel.py)
+    check(dv <= 1e-5 and dx <= 1e-5, "dp s2 driver: vertices or xyz differ by more than 1e-5")
+
+    # s3: epoch 5 from a fresh state saved at epoch 4, as one process and
+    # under torchrun (on a trained state the splats' gradients sit at the
+    # backward's noise floor, and Adam turns noise into full steps)
+    for subject in ("subj_s3a", "subj_s3b"):
+        dst = copy_stage2(out_root, subject)
+        save_s3_ckpt(os.path.join(dst, "stage3"), epoch=4, active_sh_degree=SH_DEGREE, **fresh)
+    stats = s3_appearance.main(s3_argv("subj_s3a", *S3_DP_FLAGS))
+    out = torchrun("gaussian_garments_tpu_torch.s3_appearance",
+                   s3_argv("subj_s3b", *S3_DP_FLAGS, "--data_parallel"),
+                   "dp s3 driver under torch.distributed.run", backend)
+    check("Resumed from epoch 4" in out and "pickle layout" in out, "dp s3 driver: resume line")
+    a, b = (os.path.join(out_root, s, "stage3") for s in ("subj_s3a", "subj_s3b"))
+    ca, cb = load_s3_ckpt(a), load_s3_ckpt(b)
+    n = stats["steps"]["full"]["n"]
+    # a resume restores the net and the splats, not the step count or the moments
+    check(ca["epoch"] == cb["epoch"] == 5 and n == -(-stats["n_items"] // 2)
+          and ca["iteration"] == cb["iteration"] == n, "dp s3 driver checkpoints")
+    lrs = {"net": 5e-4, **splat_lrs(graft_entry.default_opt())}
+    groups = lambda ck: {"net": np.concatenate([v.ravel() for v in _flat(ck["net_params"])
+                                                .values()]),
+                         **{k: np.asarray(getattr(ck["splats"], k)).ravel() for k in lrs
+                            if k != "net"}}
+    ga, gb, g0 = groups(ca), groups(cb), groups(fresh)
+    q = lambda x: tuple(float(np.quantile(x, f)) if x.size else 0.0 for f in (0.5, 0.99))
+    parts, moves = {}, {}
+    for k in lrs:
+        # the entries that either run moved (a texel no camera sees moves in neither)
+        live = (ga[k] != g0[k]) | (gb[k] != g0[k])
+        parts[k], moves[k] = q(np.abs(ga[k] - gb[k])[live]), q(np.abs(ga[k] - g0[k])[live])
+    logs = [[json.loads(x) for x in open(os.path.join(d_, "logs", "train.jsonl"))
+             if '"img"' in x] for d_ in (a, b)]
+    print(f"dp s3 driver against one process, {n} steps each from a fresh state, over the "
+          "entries either run moved: |diff| median, 99% within; moved from the start, median, "
+          "99% within: " + ", ".join(
+              f"{k} {parts[k][0]:.3g}, {parts[k][1]:.3g}; {moves[k][0]:.3g}, {moves[k][1]:.3g}"
+              for k in lrs)
+          + "; img loss " + ", ".join(f"{x['img']:.6g}/{y['img']:.6g}" for x, y in zip(*logs)))
+    check(len(logs[0]) == len(logs[1]) > 0, "dp s3 driver logs")
+    for i, (x, y) in enumerate(zip(*logs)):
+        check(abs(x["img"] - y["img"]) <= (1e-4 if i == 0 else 1e-2) * abs(x["img"]),
+              f"dp s3 driver img loss {x['img']} vs {y['img']}")
+    # Two right runs part where the backward's atomics and cuDNN's order flip
+    # the sign of a near-zero gradient, which Adam (eps 1e-15) turns into a
+    # full step, and the flips compound over n steps: on an H100 the splats'
+    # xyz and rotations, whose gradients are small and of unsteady sign, part
+    # by up to a third of what they moved at the median, the net by 2%.
+    # A wrong state, reduction or batch parts by about what the entries moved:
+    # the net's median within 0.2, the splats' within 0.5 of the movement
+    for k in lrs:
+        bound = DRIVER_MEDIAN_PART["net" if k == "net" else "splats"]
+        check(parts[k][0] <= bound * moves[k][0],
+              f"dp s3 driver: {k} differs by {parts[k][0]:.3g} at the median, moved "
+              f"{moves[k][0]:.3g}")
+
+
+def _flat(tree, prefix=""):
+    """A nested dict of arrays as ``{"a.b": array}``."""
+    import numpy as np
+
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(_flat(tree[k], f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(tree[k])
+    return out
+
+
+def phase_unused_modules(torch, dev):
+    """The modules no driver runs, on the card against the CPU: the wavelet
+    Discriminator at size 512 (6 channels, a batch of 4) and SMPL-X skinning
+    at the model's shapes (seeded arrays: 10,475 vertices, 55 joints, a
+    (486, 31,425) posedirs), each timed."""
+    import copy
+
+    import numpy as np
+    from gaussian_garments_tpu_torch import lbs as L
+    from gaussian_garments_tpu_torch.models.styleunet import Discriminator
+    from gaussian_garments_tpu_torch.probes.common import cuda_ms
+
+    net = Discriminator(512, img_channel=6, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn((4, 6, 512, 512), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = net(x)
+        card = copy.deepcopy(net).to(dev)
+        xd = x.to(dev)
+        got = card(xd)
+        ms = cuda_ms(lambda: card(xd), 5)
+    err = float((got.cpu() - want).abs().max())
+    print(f"Discriminator(512, 6) forward, batch 4: {ms:.3f} ms on the card (CUDA events, mean "
+          f"of 5), max |card - CPU| {err:.3g} of outputs up to {float(want.abs().max()):.3g}")
+    check(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4), "Discriminator card vs CPU")
+
+    rng = np.random.RandomState(0)
+    nv, nj = 10475, 55
+    jr = np.zeros((nj, nv), np.float32)
+    for j in range(nj):
+        jr[j, rng.choice(nv, 20, replace=False)] = rng.dirichlet(np.ones(20))
+    w = np.zeros((nv, nj), np.float32)
+    w[np.arange(nv)[:, None], rng.randint(0, nj, size=(nv, 4))] = rng.dirichlet(np.ones(4), nv)
+    parents = np.concatenate([[-1], [rng.randint(0, i) for i in range(1, nj)]])
+    arrays = [(rng.randn(nv, 3) * 0.3).astype(np.float32),
+              (rng.randn(nv, 3, 20) * 0.01).astype(np.float32),
+              (rng.randn((nj - 1) * 9, nv * 3) * 0.01).astype(np.float32), jr, w]
+    betas = (rng.randn(1, 20) * 0.5).astype(np.float32)
+    pose = (rng.randn(1, nj * 3) * 0.3).astype(np.float32)
+
+    def run(device):
+        t = lambda a: torch.as_tensor(a, device=device)
+        v_t, dirs, posedirs, jreg, weights = (t(a) for a in arrays)
+        return lambda: L.lbs(t(betas), t(pose), v_t, dirs, posedirs, jreg, parents, weights)
+
+    want = [x.numpy() for x in run("cpu")()]
+    fn = run(dev)
+    got = [x.cpu().numpy() for x in fn()]
+    ms = cuda_ms(fn, 5)
+    errs = [float(np.abs(g - w_).max()) for g, w_ in zip(got, want)]
+    print(f"lbs at SMPL-X's shapes: {ms:.3f} ms on the card (CUDA events, mean of 5); max "
+          f"|card - CPU| joint transforms {errs[0]:.3g}, vertices {errs[1]:.3g}, pose offsets "
+          f"{errs[2]:.3g}")
+    check(errs[0] <= 1e-5 and errs[1] <= 2e-5 and errs[2] <= 1e-5, "lbs card vs CPU")
+
+
 def main() -> int:
     import torch
 
@@ -1629,6 +2051,10 @@ def main() -> int:
         bf16_launches, bf16_errs = phase_s3_bf16(torch, dev, out_root, s3_run, split)
         dense_launches, dense_errs = phase_s3_dense(torch, dev, out_root)
         added += time.perf_counter() - t_new
+        t_new = time.perf_counter()
+        dp_launches = phase_data_parallel(torch, dev, out_root)
+        phase_unused_modules(torch, dev)
+        dp_secs = time.perf_counter() - t_new
         s1_secs = phase_s1(torch, dev, data_root, out_root, card)[0]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1645,6 +2071,7 @@ def main() -> int:
         check(s3_launches[name] > 0, f"{name} was not launched on the s3 path")
         check(bf16_launches[name] > 0, f"{name} was not launched on the s3 --unet_bf16 path")
         check(dense_launches[name] > 0, f"{name} was not launched on the s3 --dense_texels path")
+        check(dp_launches[name] > 0, f"{name} was not launched by the data-parallel ranks")
         max_err = max(errs[name], s2_errs[name], s3_errs[name], bf16_errs[name], dense_errs[name],
                       inf_err if name == "composite_fwd" else 0.0)
         kernels.append({"name": name, "route": "cuda", "source": relpath(source),
@@ -1662,8 +2089,8 @@ def main() -> int:
     check(registered == set(kcuda.KERNELS),
           f"kernels not driven: {set(kcuda.KERNELS) - registered}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, {added:.1f} s of it in the "
-          f"phases of the bf16, dense and exact-visibility paths, {s1_secs:.1f} s in the stage-1 "
-          "phase")
+          f"phases of the bf16, dense and exact-visibility paths, {dp_secs:.1f} s in the "
+          f"data-parallel and unused-module phases, {s1_secs:.1f} s in the stage-1 phase")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

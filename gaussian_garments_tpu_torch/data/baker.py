@@ -98,5 +98,8 @@ def bake_textures(bind: AvatarBinding, mesh_v: np.ndarray, mesh_f: np.ndarray,
     ambient, normal = ambient_map[None], normal_map.transpose(2, 0, 1)
     if cache_path is not None:
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
-        np.savez_compressed(cache_path, ambient=ambient, normal=normal)
+        # written aside and renamed: data-parallel ranks bake the same frames
+        tmp = f"{cache_path}.tmp-{os.getpid()}.npz"
+        np.savez_compressed(tmp, ambient=ambient, normal=normal)
+        os.replace(tmp, cache_path)
     return ambient, normal

@@ -12,7 +12,9 @@ Port of ``gaussian_garments_tpu/models/styleunet.py`` (reference
 Submodule and parameter names are the Flax names (``style_0``, ``conv_in``,
 ``from_rgb_0.conv.conv.weight``, ``to_rgb_4.bias``, ...), so a state_dict key
 is the Flax parameter path joined with dots. The fixed noise buffers
-(``noise_0``...) are buffers, loaded from the checkpoint. Convolutions are
+(``noise_0``...) are buffers, loaded from the checkpoint. The wavelet
+``Discriminator`` (with ``DiscFromRGB`` and ``_minibatch_stddev``), which no
+stage script trains, is here too. Convolutions are
 float32 unless the caller casts the weights and inputs to bf16; the entry
 points turn TF32 off (``pin_full_f32``). Every Python constant that scales an
 activation or a weight is first rounded to that tensor's dtype (``_c``), as
@@ -259,6 +261,82 @@ class ToRGB(nn.Module):
         out = self.conv(x, style) + self.bias
         if skip is not None:
             out = out + haar_transform(upsample(inverse_haar_transform(skip)))
+        return out
+
+
+class DiscFromRGB(nn.Module):
+    """The Discriminator's FromRGB (``use_wt=True``; JAX
+    ``models/styleunet.py:331``): inputs live in Haar-wavelet space, and a
+    downsampling level round-trips through pixel space (iwt → blur-down →
+    dwt)."""
+
+    def __init__(self, in_c, out_c, downsample=True, generator=None):
+        super().__init__()
+        self.downsample = downsample
+        self.conv = ConvLayer(in_c, out_c, 1, generator=generator)
+
+    def forward(self, inp, skip):
+        if self.downsample:
+            inp = haar_transform(downsample(inverse_haar_transform(inp)))
+        out = self.conv(inp)
+        return inp, (out if skip is None else out + skip)
+
+
+def _minibatch_stddev(out, group_size: int = 4, feat: int = 1):
+    """StyleGAN2's minibatch stddev (JAX ``models/styleunet.py:350``): the
+    biased per-group feature stddev, averaged, tiled back over the batch."""
+    b, c, h, w = out.shape
+    g = min(b, group_size)
+    s = out.reshape(g, b // g, feat, c // feat, h, w)
+    sd = torch.sqrt(s.var(dim=0, unbiased=False) + _c(1e-8, out.dtype))  # (B/g,f,C/f,H,W)
+    sd = sd.mean(dim=(2, 3, 4), keepdim=True)[:, :, 0]                   # (B/g,f,1,1)
+    return sd.repeat(g, 1, h, w)                                          # (B,f,H,W)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 wavelet discriminator (JAX ``models/styleunet.py:361``;
+    reference styleunet.py:473-565), with the pose-conditioned projection
+    head when ``c_dim > 0``. No stage script trains it."""
+
+    def __init__(self, size, img_channel=6, channel_multiplier=2, c_dim=0, generator=None):
+        super().__init__()
+        g, cm = generator, channel_multiplier
+        self.c_dim = c_dim
+        log_size = int(math.log2(size)) - 1
+        in_channel = _channels(size, cm)
+        self.n_levels = 0
+        for j, i in enumerate(range(log_size, 2, -1)):
+            out_channel = _channels(2 ** (i - 1), cm)
+            setattr(self, f"from_rgb_{j}", DiscFromRGB(img_channel * 4, in_channel,
+                                                       downsample=(i != log_size), generator=g))
+            setattr(self, f"conv_{j}", ConvBlock(in_channel, out_channel, generator=g))
+            in_channel = out_channel
+            self.n_levels += 1
+        c4 = _channels(4, cm)
+        self.from_rgb_final = DiscFromRGB(img_channel * 4, c4, generator=g)
+        self.final_conv = ConvLayer(c4 + 1, c4, 3, generator=g)
+        self.final_linear_0 = EqualLinear(c4 * 4 * 4, c4, activation="fused_lrelu", generator=g)
+        self.final_linear_1 = EqualLinear(c4, 1, generator=g)
+        for i in range(4 if c_dim > 0 else 0):
+            setattr(self, f"mapping_{i}", EqualLinear(c_dim if i == 0 else 64, 64, lr_mul=0.01,
+                                                      activation="fused_lrelu", generator=g))
+
+    def forward(self, x, flat_pose: Optional[torch.Tensor] = None):
+        x = haar_transform(x)
+        out = None
+        for j in range(self.n_levels):
+            x, out = getattr(self, f"from_rgb_{j}")(x, out)
+            out = getattr(self, f"conv_{j}")(out)
+        x, out = self.from_rgb_final(x, out)
+        out = torch.cat([out, _minibatch_stddev(out)], dim=1)
+        out = self.final_conv(out).reshape(out.shape[0], -1)
+        out = self.final_linear_1(self.final_linear_0(out))
+        if self.c_dim > 0:
+            e = flat_pose
+            for i in range(4):
+                e = getattr(self, f"mapping_{i}")(e)
+            e = e * torch.rsqrt(torch.mean(e ** 2, dim=1, keepdim=True) + _c(1e-8, e.dtype))
+            out = torch.sum(out * e, dim=1, keepdim=True) / math.sqrt(self.c_dim)
         return out
 
 

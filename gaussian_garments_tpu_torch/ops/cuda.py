@@ -148,9 +148,17 @@ def launch(source: str, fn: str, *args) -> None:
 
 
 def stream(device) -> int:
-    """The current stream of ``device`` as an int for ctypes."""
+    """The current stream of ``device`` as an int for ctypes. A kernel
+    launches on the current CUDA device, so this raises unless ``device`` is
+    that device: a launch wrapper calls it under ``torch.cuda.device(dev)``
+    of its tensors' device, and never moves the data."""
     import torch
 
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.type != "cuda" or (device.index is not None and device.index != current):
+        raise RuntimeError(f"launch on {device} while the current CUDA device is cuda:{current}: "
+                           "launch under torch.cuda.device() of the tensors' device")
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -208,8 +208,8 @@ def l2_window_ms(table: torch.Tensor, idx: torch.Tensor, reps: int = 20) -> floa
     """``flat_l2``'s ms (CUDA events, mean of ``reps``) with the table in an
     L2 persisting access-policy window on the current stream; the window is
     cleared afterwards, whatever happens."""
-    s = stream(table.device)
     with torch.cuda.device(table.device):
+        s = stream(table.device)
         launch("probe_gather", "gg_l2_persisting_window", s, table.data_ptr(),
                table.numel() * 4)
         try:

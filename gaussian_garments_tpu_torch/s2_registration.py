@@ -17,7 +17,18 @@ Each step renders ``--cameras_per_step`` cameras (``training/s2.py``).
 ``--device`` defaults to ``cuda`` and raises when no GPU is present; only
 ``--device cpu`` runs the compositor's plain torch version. TF32 is off for
 the whole run. ``--use_icp`` is accepted and, as in the JAX driver, does
-nothing; ``--data_parallel`` is not ported. The log also records the first
+nothing. The random background, when on, comes from its own seeded stream.
+
+``--data_parallel`` under ``torchrun`` (one process per GPU, NCCL; gloo with
+``--device cpu``) shards each step's camera batch over the ranks
+(``parallel/``): every rank draws the same cameras and background from the
+same seeds and renders its contiguous block, and the step all-reduces the
+gradients, losses and densification statistics, so that every host decision
+(densify, opacity reset, plateau stop, the non-finite check) sees the same
+numbers on every rank. Rank 0 alone writes the artifacts and logs; the
+others wait at a barrier. Without a launcher the flag runs one process.
+
+The log also records the first
 iteration, so each frame's log starts from its initial loss, and each
 densification (clone/split/prune counts and the mean and largest averaged
 screen-space gradient it compared with ``--densify_grad_threshold``).
@@ -66,6 +77,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--camera", default="PINHOLE", type=str)
     parser.add_argument("--cameras_per_step", type=int, default=4,
                         help="cameras rendered per step (the reference samples 1)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="shard the camera batch over all local devices "
+                             "(cameras_per_step must be a multiple of the device count)")
     parser.add_argument("--early_stop_rel", type=float, default=5e-4,
                         help="sequence frames: end a phase when the windowed total loss "
                              "improves by less than this relative amount; 0 disables")
@@ -86,7 +100,7 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    from gaussian_garments_tpu_torch import pin_full_f32
+    from gaussian_garments_tpu_torch import parallel, pin_full_f32
     from gaussian_garments_tpu_torch.config import DEFAULTS
     from gaussian_garments_tpu_torch.data.readers import FrameDataloader
     from gaussian_garments_tpu_torch.models import gaussian as G
@@ -102,7 +116,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from gaussian_garments_tpu_torch.utils.quality import evaluate_cameras
 
     args, _, op = parse_args(argv)
-    device = resolve_device(args.device)
+    device, group = parallel.driver_group(args.data_parallel, resolve_device(args.device),
+                                          args.cameras_per_step, "--cameras_per_step")
+    main_rank = parallel.is_main(group)
+    say = print if main_rank else (lambda *a, **k: None)
     pin_full_f32()
 
     args.sh_degree = 0      # the reference's hard override (s2_registration.py:158)
@@ -113,9 +130,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if not args.is_template:
         args.first_frame_iterations = args.first_frame_iterations_cross
     stage2_path = Path(args.subject_out) / DEFAULTS.stage2 / args.sequence
-    os.makedirs(stage2_path, exist_ok=True)
-    with open(stage2_path / "cfg_args", "w") as f:
-        f.write(str(Namespace(**vars(args))))
+    if main_rank:
+        os.makedirs(stage2_path, exist_ok=True)
+        with open(stage2_path / "cfg_args", "w") as f:
+            f.write(str(Namespace(**vars(args))))
     opt = op.extract(args)
 
     dataloader = FrameDataloader(args, device=device)
@@ -131,7 +149,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         colors = pc.colors[cKDTree(pc.points).query(centers)[1]]
     else:
         colors = np.full((len(centers), 3), 0.5, np.float32)
-    store_ply(stage2_path / "input.ply", centers, colors * 255)
+    if main_rank:
+        store_ply(stage2_path / "input.ply", centers, colors * 255)
 
     # SMPL-X hand vertices, left out of the collision body (mesh_gaussian_model.py:76-78)
     hand_list = np.zeros(0, np.int64)
@@ -149,6 +168,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     frames_iterator = [args.template_frame] if args.is_template else range(len(dataloader))
     rng = random.Random(0)
     densify_rng = np.random.RandomState(0)   # advances across densifications
+    bg_rng = np.random.RandomState(0)
     binding_counter = np.ones(len(tem["faces"]), np.int32)
     state = None
     steps = {}
@@ -168,7 +188,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 tem["vertices"], tem["faces"], colors, max_sh_degree=args.sh_degree,
                 device=device)
             state = S2.init_state(params, aux, binding, mesh)
-            store_cam(dataloader.cam_info, stage2_path)
+            if main_rank:
+                store_cam(dataloader.cam_info, stage2_path)
             state = state.replace(mesh=scene.setup_body(state.mesh, t))
         else:
             # sequence mode reloads the Template splats every frame (cross_scene.py:67-70)
@@ -184,6 +205,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             else:
                 state = state.replace(mesh=scene.setup_body(state.mesh, t))
 
+        state = parallel.broadcast_from_rank0(state, group)   # equal on every rank
         spatial_lr_scale = scene.cameras_extent
         xyz_sched = get_expon_lr_func(lr_init=opt.position_lr_init * spatial_lr_scale,
                                       lr_final=opt.position_lr_final * spatial_lr_scale,
@@ -191,7 +213,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                       max_steps=opt.position_lr_max_steps)
         vert_lr = opt.position_lr_init * spatial_lr_scale
 
-        metrics_log = MetricLogger(str(stage2_path / "logs" / f"frame_{t:05d}.jsonl"))
+        metrics_log = MetricLogger(
+            str(stage2_path / "logs" / f"frame_{t:05d}.jsonl") if main_rank else None)
         timer = StepTimer()
         viewpoint_stack = []
         plateau_on = args.early_stop_rel > 0 and not is_ff
@@ -210,13 +233,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 if not viewpoint_stack:
                     viewpoint_stack = list(train_cams)
                 picked.append(viewpoint_stack.pop(rng.randint(0, len(viewpoint_stack) - 1)))
-            batch = BatchedCameras.from_cameras(picked)
-            bg = torch.as_tensor(np.random.rand(3).astype(np.float32), device=device) \
+            batch = BatchedCameras.from_cameras(parallel.shard(picked, group))
+            bg = torch.as_tensor(bg_rng.rand(3).astype(np.float32), device=device) \
                 if opt.random_background else bg_color
             key = (mode, use_body)
             if key not in steps:
                 steps[key] = S2.make_s2_step(opt, mode=mode, use_body=use_body,
-                                             active_sh_degree=0, raster_cfg=cfg)
+                                             active_sh_degree=0, raster_cfg=cfg, group=group)
             xyz_lr = float(xyz_sched(it)) if (args.is_template and is_ff) else \
                 opt.position_lr_init * spatial_lr_scale
 
@@ -253,7 +276,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 n_overflow=float(metrics["n_overflow"]),
                                 step_s=timer.avg.get("step", 0.0))
             if it % 500 == 0 or it == iterations:
-                print(f"[frame {t} iter {it}/{iterations}] "
+                say(f"[frame {t} iter {it}/{iterations}] "
                       + " ".join(f"{k}={float(v):.5f}" for k, v in loss_dict.items()))
 
             if plateau_on and it % check_every == 0:
@@ -266,60 +289,64 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     if flat:
                         body_start = iterations - collision_iteration
                         if not use_body and it < body_start and collision_iteration > 0:
-                            print(f"[frame {t}] plateau at iter {it}; skipping to the "
-                                  f"collision phase ({body_start})")
+                            say(f"[frame {t}] plateau at iter {it}; skipping to the "
+                                f"collision phase ({body_start})")
                             it = body_start
                             prev_avg = None   # the loss scale changes with the body terms
                         else:
-                            print(f"[frame {t}] plateau at iter {it}; early stop")
+                            say(f"[frame {t}] plateau at iter {it}; early stop")
                             break
 
         # artifacts (reference saver, s2_registration.py:88-122)
-        with torch.no_grad():
-            frames = MG.compute_face_frames(state.mesh.v, state.mesh.f)
-            mesh_v = state.mesh.v.cpu().numpy()
-            scene.save(t, state.params, state.aux, state.binding.cpu().numpy(), frames,
-                       template=args.is_template)
-            if args.is_template:
-                template_dir = Path(args.subject_out) / DEFAULTS.stage2 / "Template"
-                os.makedirs(template_dir, exist_ok=True)
-                write_obj(dict(tem, vertices=mesh_v), template_dir / "template.obj")
-                panel_path = template_dir / "template_render.png"
-            else:
-                panel_path = stage2_path / "renders" / f"{t:05d}.png"
-            scene.save_mesh(t, tem, mesh_v)
+        frames = MG.compute_face_frames(state.mesh.v.detach(), state.mesh.f)
+        quality = {}
+        if main_rank:
+            with torch.no_grad():
+                mesh_v = state.mesh.v.cpu().numpy()
+                scene.save(t, state.params, state.aux, state.binding.cpu().numpy(), frames,
+                           template=args.is_template)
+                if args.is_template:
+                    template_dir = Path(args.subject_out) / DEFAULTS.stage2 / "Template"
+                    os.makedirs(template_dir, exist_ok=True)
+                    write_obj(dict(tem, vertices=mesh_v), template_dir / "template.obj")
+                    panel_path = template_dir / "template_render.png"
+                else:
+                    panel_path = stage2_path / "renders" / f"{t:05d}.png"
+                scene.save_mesh(t, tem, mesh_v)
 
-            bundle = S2.splat_bundle(state.params, state.binding, state.aux.alive,
-                                     state.mesh.v, state.mesh.f)
-            render_fn = lambda c: render(c, bundle, bg_color, config=cfg)["render"]
-            cam0 = train_cams[0]
-            body_vf = scene.body_for_frame(t)
-            mesh_img = shaded_mesh_image(mesh_v, tem["faces"], cam0,
-                                         body_v=body_vf[0] if body_vf else None,
-                                         body_f=body_vf[1] if body_vf else None)
-            debug_panel(cam0.original_image.cpu().numpy(), cam0.gt_alpha_mask.cpu().numpy(),
-                        render_fn(cam0).cpu().numpy(), mesh_render=mesh_img,
-                        path=str(panel_path))
+                bundle = S2.splat_bundle(state.params, state.binding, state.aux.alive,
+                                         state.mesh.v, state.mesh.f)
+                render_fn = lambda c: render(c, bundle, bg_color, config=cfg)["render"]
+                cam0 = train_cams[0]
+                body_vf = scene.body_for_frame(t)
+                mesh_img = shaded_mesh_image(mesh_v, tem["faces"], cam0,
+                                             body_v=body_vf[0] if body_vf else None,
+                                             body_f=body_vf[1] if body_vf else None)
+                debug_panel(cam0.original_image.cpu().numpy(), cam0.gt_alpha_mask.cpu().numpy(),
+                            render_fn(cam0).cpu().numpy(), mesh_render=mesh_img,
+                            path=str(panel_path))
 
-            # quality on the llffhold split (and a train probe) at the save point
-            q_train = evaluate_cameras(train_cams, render_fn, max_cams=4)
-            q_test = evaluate_cameras(test_cams, render_fn, max_cams=8)
-        quality = {**{f"train_{k}": v for k, v in q_train.items()},
-                   **{f"test_{k}": v for k, v in q_test.items()}}
-        metrics_log.log(iterations, quality, frame=t)
-        print(f"[frame {t}] quality: " + " ".join(f"{k}={v:.3f}" for k, v in quality.items()))
+                # quality on the llffhold split (and a train probe) at the save point
+                q_train = evaluate_cameras(train_cams, render_fn, max_cams=4)
+                q_test = evaluate_cameras(test_cams, render_fn, max_cams=8)
+            quality = {**{f"train_{k}": v for k, v in q_train.items()},
+                       **{f"test_{k}": v for k, v in q_test.items()}}
+            metrics_log.log(iterations, quality, frame=t)
+            say(f"[frame {t}] quality: " + " ".join(f"{k}={v:.3f}" for k, v in quality.items()))
+        parallel.barrier(group)
         with torch.no_grad():
             xyz = MG.world_xyz(state.params, state.binding, frames).cpu().numpy()
             rot = MG.world_rotation(state.params, state.binding, frames).cpu().numpy()
         scene.post_each_frame(is_ff, xyz, rot, tem["vertices"], tem["faces"],
                               state.binding.cpu().numpy())
         metrics_log.close()
-        stats["frames"].append({"frame": t, "iterations": it,
+        stats["frames"].append({"frame": t, "iterations": it, "cameras_extent": spatial_lr_scale,
                                 "n_splats": int(state.aux.alive.sum()), **quality})
 
     for m in stats["modes"].values():
         m["s_per_iteration"] = m["seconds"] / max(m["iterations"], 1)
-    print("\nTraining complete.")
+    parallel.teardown(group)
+    say("\nTraining complete.")
     return stats
 
 

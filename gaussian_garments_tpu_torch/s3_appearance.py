@@ -19,8 +19,21 @@ the net and splats at the next epoch, as the JAX package's ``s3_appearance.py`` 
 the whole run. The per-item visibility is a constant of the item and is
 cached across epochs, packbits'd. ``--unet_bf16`` runs the StyleUNet in bf16
 over float32 master weights; ``--dense_texels`` trains the dense res² texel
-layout, and a checkpoint of either layout resumes into either. Not ported yet
-(they raise): ``--data_parallel`` and ``--ckpt_backend orbax``.
+layout, and a checkpoint of either layout resumes into either.
+
+``--data_parallel`` under ``torchrun`` shards each step's items over the
+ranks (``--items_per_step`` a multiple of the world size): every rank loads
+the whole batch, so that the numpy stream of random backgrounds stays in step,
+trains on its contiguous block, and averages the gradients and losses with the
+others before Adam. Rank 0 alone writes the checkpoint, debug panels and logs
+and renders the eval; every rank resumes from the checkpoint, and rank 0's
+starting state is broadcast. Without a launcher the flag runs one process.
+
+``--ckpt_backend orbax`` keeps the JAX flag's two properties over the pickle
+layout, since reading or writing orbax needs jax: mid-epoch saves are
+asynchronous (the write overlaps the next steps, and the run waits for it at
+the end) and every file is committed by an atomic rename. An orbax checkpoint
+is refused by name; ``scripts/orbax_to_pickle.py`` converts one where jax is.
 
 ``main`` returns a stats dict: per step kind (``pre``: net only; ``full``:
 net and splats) the steps and wall seconds (each step ends in a device
@@ -40,9 +53,6 @@ import numpy as np
 import torch
 
 from gaussian_garments_tpu_torch import resolve_device
-
-NOT_PORTED = ("data_parallel",)
-
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     from gaussian_garments_tpu_torch.config import OptimizationParams, PipelineParams
@@ -71,14 +81,17 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                              "scatters become reshapes")
     parser.add_argument("--unet_bf16", action="store_true",
                         help="bf16 UNet activations over float32 master weights")
-    parser.add_argument("--data_parallel", action="store_true", help="not ported yet")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="shard the item batch over the ranks of a torchrun launch "
+                             "(items_per_step must be a multiple of the world size)")
     parser.add_argument("--eval_only", action="store_true",
                         help="load the checkpoint, run the held-out PSNR/SSIM eval, print one "
                              "EVAL_ONLY json line and exit")
     parser.add_argument("--eval_items", type=int, default=4,
                         help="held-out items rendered for PSNR/SSIM at save points")
     parser.add_argument("--ckpt_backend", type=str, default="pickle", choices=("pickle", "orbax"),
-                        help="only pickle is ported")
+                        help="orbax: asynchronous mid-epoch saves with atomic commits, "
+                             "written in the pickle layout")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cuda' raises when no GPU is present")
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
@@ -122,15 +135,14 @@ def prepare(argv: Optional[Sequence[str]] = None):
         avatar_net_state_from_jax, has_s3_ckpt, load_s3_ckpt)
     from gaussian_garments_tpu_torch.utils.io import read_obj
 
+    from gaussian_garments_tpu_torch import parallel
+
     args, op = parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported to the torch package yet "
-                                      "(ROADMAP.md)")
-    if args.ckpt_backend != "pickle":
-        raise NotImplementedError("--ckpt_backend orbax is not ported to the torch package yet "
-                                  "(ROADMAP.md); the port writes and reads pickle checkpoints")
-    device = resolve_device(args.device)
+    device, group = parallel.driver_group(args.data_parallel, resolve_device(args.device),
+                                          args.items_per_step, "--items_per_step")
+    if args.ckpt_backend == "orbax" and parallel.is_main(group):
+        print("[ckpt] --ckpt_backend orbax: the port writes the pickle layout (net.pkl, "
+              "optm.pkl) with asynchronous mid-epoch saves and atomic commits")
     pin_full_f32()
 
     if len(args.subject_out) == 0:
@@ -178,7 +190,9 @@ def prepare(argv: Optional[Sequence[str]] = None):
             net_buffers={k: weights[k].to(device) for k in state.net_buffers},
             splats=AG.adapt_params_layout(bind, ck["splats"].to(device)))
         start_epoch = ck["epoch"] + 1
-        print(f"Resumed from epoch {ck['epoch']}")
+        if parallel.is_main(group):
+            print(f"Resumed from epoch {ck['epoch']}")
+    state = parallel.broadcast_from_rank0(state, group)   # equal on every rank
 
     # per-item visibility cache: a constant of the (seq, frame, camera) item,
     # stored packbits'd
@@ -212,36 +226,44 @@ def prepare(argv: Optional[Sequence[str]] = None):
             vis=torch.stack([item_vis(b) for b in batch]),
             width=cams[0].image_width, height=cams[0].image_height)
 
-    return args, SimpleNamespace(device=device, bind=bind, dataset=dataset, mesh_f=mesh_f,
-                                 net=net, state=state, start_epoch=start_epoch,
+    return args, SimpleNamespace(device=device, group=group, bind=bind, dataset=dataset,
+                                 mesh_f=mesh_f, net=net, state=state, start_epoch=start_epoch,
                                  make_item=make_item, run_args=run_args,
                                  stage3_path=stage3_path, n_texels=n_texels)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    from gaussian_garments_tpu_torch import parallel
     from gaussian_garments_tpu_torch.training import s3 as S3
-    from gaussian_garments_tpu_torch.training.checkpoints import s3_state_to_jax, save_s3_ckpt
+    from gaussian_garments_tpu_torch.training.checkpoints import (s3_state_to_jax, save_s3_ckpt,
+                                                                  wait_for_saves)
     from gaussian_garments_tpu_torch.utils.logging import MetricLogger
     from gaussian_garments_tpu_torch.utils.quality import image_metrics
 
     args, run = prepare(argv)
     device, bind, dataset, mesh_f, net = run.device, run.bind, run.dataset, run.mesh_f, run.net
-    state, make_item, stage3_path = run.state, run.make_item, run.stage3_path
+    state, make_item, stage3_path, group = run.state, run.make_item, run.stage3_path, run.group
+    main_rank = parallel.is_main(group)
+    say = print if main_rank else (lambda *a, **k: None)
 
     kw = dict(sh_degree=args.sh_degree)
-    step_pre = S3.make_s3_step(net, run.run_args, train_gaussians=False, **kw)
-    step_full = S3.make_s3_step(net, run.run_args, train_gaussians=True, **kw)
+    step_pre = S3.make_s3_step(net, run.run_args, train_gaussians=False, group=group, **kw)
+    step_full = S3.make_s3_step(net, run.run_args, train_gaussians=True, group=group, **kw)
     eval_fn = S3.make_s3_eval(net, **kw)
-    metrics_log = MetricLogger(str(stage3_path / "logs" / "train.jsonl"))
+    metrics_log = MetricLogger(str(stage3_path / "logs" / "train.jsonl") if main_rank else None)
     stats = {"steps": {"pre": {"n": 0, "seconds": 0.0}, "full": {"n": 0, "seconds": 0.0}},
              "losses": [], "eval": [], "n_items": len(dataset), "n_texels": run.n_texels}
 
     def eval_quality() -> dict:
-        """PSNR/SSIM on held-out llffhold items."""
+        """PSNR/SSIM on held-out llffhold items, rendered by rank 0. Every
+        rank loads the items, so that each draws the same backgrounds."""
         n = min(args.eval_items, len(dataset.eval_collection))
         acc = {}
         for j in range(n):
-            it_ = make_item([dataset.eval_item(j)])
+            entry = dataset.eval_item(j)
+            if not main_rank:
+                continue
+            it_ = make_item([entry])
             img = eval_fn(state, bind, mesh_f, it_)[0]
             for k, v in image_metrics(img, it_.image[0], it_.mask[0]).items():
                 acc[k] = acc.get(k, 0.0) + v
@@ -252,18 +274,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if q:
             metrics_log.log(step, q, epoch=epoch)
             stats["eval"].append({"step": step, "epoch": epoch, **q})
-            print(f"[epoch {epoch}] " + " ".join(f"{k}={v:.3f}" for k, v in q.items()))
+            say(f"[epoch {epoch}] " + " ".join(f"{k}={v:.3f}" for k, v in q.items()))
 
-    def save(epoch: int) -> None:
-        save_s3_ckpt(stage3_path, epoch=epoch, active_sh_degree=args.sh_degree,
-                     **s3_state_to_jax(state))
+    def save(epoch: int, mid_epoch: bool = False) -> None:
+        if main_rank:
+            save_s3_ckpt(stage3_path, epoch=epoch, active_sh_degree=args.sh_degree,
+                         async_save=mid_epoch and args.ckpt_backend == "orbax",
+                         **s3_state_to_jax(state))
 
     if args.eval_only:
         q = eval_quality()
-        print("EVAL_ONLY " + json.dumps({k: round(float(v), 4) for k, v in q.items()}),
-              flush=True)
+        say("EVAL_ONLY " + json.dumps({k: round(float(v), 4) for k, v in q.items()}),
+            flush=True)
         metrics_log.close()
         stats["eval"].append(q)
+        parallel.teardown(group)
         return stats
 
     b = args.items_per_step
@@ -271,7 +296,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     for epoch in range(run.start_epoch, args.epochs + 1):
         dataset.reshuffle(epoch)     # reference DataLoader(shuffle=True), s3:99
         for it in range(0, len(dataset), b):
-            item = make_item([dataset[j % len(dataset)] for j in range(it, it + b)])
+            batch = [dataset[j % len(dataset)] for j in range(it, it + b)]
+            item = make_item(parallel.shard(batch, group))
             kind = "pre" if epoch == 1 and it < args.pre_train_iterations else "full"
             t0 = time.perf_counter()
             state, loss_dict = (step_pre if kind == "pre" else step_full)(state, bind, mesh_f,
@@ -284,19 +310,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             losses = {k: float(v) for k, v in loss_dict.items()}
             stats["losses"].append({"epoch": epoch, "it": it, "kind": kind, **losses})
             if it % 100 == 0:
-                print(f"[epoch {epoch} iter {it}/{len(dataset)}] "
+                say(f"[epoch {epoch} iter {it}/{len(dataset)}] "
                       + " ".join(f"{k}={v:.5f}" for k, v in losses.items()))
                 metrics_log.log(global_it, losses, epoch=epoch)
             # debug texture panels every save_iterations/5 items
-            if it % max(args.save_iterations // 5, 1) == 0:
+            if main_rank and it % max(args.save_iterations // 5, 1) == 0:
                 _save_debug_textures(net, state, bind, mesh_f, item, stage3_path, epoch, it)
             if it > 0 and it % args.save_iterations == 0:
-                save(epoch)
+                save(epoch, mid_epoch=True)
                 log_quality(global_it, epoch)
         save(epoch)
         log_quality(global_it, epoch)
     metrics_log.close()
-    print("\nTraining complete.")
+    wait_for_saves()
+    parallel.teardown(group)
+    say("\nTraining complete.")
     return stats
 
 

@@ -11,9 +11,20 @@ maps both classes to the port's own containers. ``save_s3_ckpt`` writes the
 same layout, class paths included, so the JAX package reads what the port
 writes.
 
+A save writes its files into a temporary directory beside ``<model>/ckpt``
+and swaps that in as a whole, and it may run on a background thread
+(``async_save``; ``wait_for_saves`` joins it): these are the two properties
+of the JAX package's orbax backend, which the port's ``--ckpt_backend
+orbax`` gives the pickle layout. An orbax checkpoint
+(``net.orbax``) needs jax to read; ``load_s3_ckpt`` refuses it by name and
+points to ``scripts/orbax_to_pickle.py``, which converts it where jax is.
+
 ``avatar_net_state_from_jax`` / ``avatar_net_state_to_jax`` convert the
 weights: a state_dict key of the port's AvatarNet is the Flax path joined
-with dots. Orbax checkpoints (``net.orbax``) are not read yet.
+with dots. ``flax_state_to_torch`` does the same for any port module named
+after its Flax counterpart, transposing ``nn.Dense`` kernels and taking
+``nn.Conv`` kernels from HWIO to OIHW (``AppearanceNet``, ``ConvUNet``;
+the ``Discriminator``'s own weights are already in torch's layout).
 
 ``s2_state_from_jax`` / ``s2_state_to_jax`` convert a stage-2 training state
 (splats, statistics, both Adam states, binding, mesh) to and from the JAX
@@ -22,12 +33,15 @@ package's ``S2State`` fields as numpy arrays; ``s3_state_from_jax`` /
 """
 from __future__ import annotations
 
-import io
+import ctypes
+import errno
 import os
 import pickle
 import re
+import shutil
+import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -67,27 +81,44 @@ class _JaxCheckpointPickler(pickle._Pickler):
         super().save_global(obj, name)
 
 
-def _dump(obj, path: Path) -> None:
-    buf = io.BytesIO()
-    _JaxCheckpointPickler(buf, protocol=4).dump(obj)
-    path.write_bytes(buf.getvalue())
-
-
 def _load(path: Path):
     with open(path, "rb") as f:
         return _JaxCheckpointUnpickler(f).load()
+
+
+ORBAX_CONVERTER = "scripts/orbax_to_pickle.py"
+_TMP_TAG = ".tmp-"
+_OLD_TAG = ".old-"
+_WRITERS: List[threading.Thread] = []
+_ERRORS: List[BaseException] = []
+
+
+def _orbax_committed(od: Path) -> bool:
+    """Whether ``net.orbax`` holds a committed orbax checkpoint: a
+    digit-named manager step directory (an uncommitted one carries a suffix)
+    or the older single-directory layout's metadata file (JAX
+    ``training/checkpoints.py:193-205``)."""
+    if not od.is_dir():
+        return False
+    if any(p.is_dir() and p.name.isdigit() for p in od.iterdir()):
+        return True
+    return (od / "_CHECKPOINT_METADATA").exists()
 
 
 def load_s3_ckpt(model_path, name: str = "ckpt") -> Dict:
     """The checkpoint dict (epoch, activate_sh_degree, net_params,
     net_buffers, splats and, when ``optm.pkl`` is there, net_adam, splat_adam
     and iteration) with numpy leaves, ``splats`` as the port's GaussianParams
-    and the Adam states as the port's TreeAdam."""
-    path = Path(model_path) / name
-    if (path / "net.orbax").exists():
+    and the Adam states as the port's TreeAdam. A committed orbax checkpoint
+    is refused by name: the JAX package would read it in preference to any
+    ``net.pkl`` beside it, and reading orbax needs jax."""
+    wait_for_saves()
+    path = _recover(Path(model_path) / name)
+    if _orbax_committed(path / "net.orbax"):
         raise NotImplementedError(
-            f"{path / 'net.orbax'} is an orbax checkpoint; the torch port reads only "
-            "net.pkl (see ROADMAP.md). Re-save the stage-3 run with backend='pickle'.")
+            f"{path / 'net.orbax'} is an orbax checkpoint, which the torch port cannot read "
+            f"(it needs jax and orbax). Convert it where they are installed: python "
+            f"{ORBAX_CONVERTER} {model_path} OUT_PATH, then resume with --ckpt_path OUT_PATH.")
     net = _load(path / "net.pkl")
     if (path / "optm.pkl").exists():
         net.update(_load(path / "optm.pkl"))
@@ -96,30 +127,136 @@ def load_s3_ckpt(model_path, name: str = "ckpt") -> Dict:
 
 
 def has_s3_ckpt(model_path, name: str = "ckpt") -> bool:
-    """Whether ``<model_path>/<name>`` holds a checkpoint (a ``net.pkl``, or an
-    orbax directory, which ``load_s3_ckpt`` refuses by name)."""
-    path = Path(model_path) / name
-    return (path / "net.pkl").exists() or (path / "net.orbax").is_dir()
+    """Whether ``<model_path>/<name>`` holds a committed checkpoint: a
+    ``net.pkl``, or a committed orbax directory (which ``load_s3_ckpt``
+    refuses by name). A writer killed before its first commit leaves only
+    temporaries, or an empty ``net.orbax``, and that is no checkpoint."""
+    path = _recover(Path(model_path) / name)
+    return (path / "net.pkl").exists() or _orbax_committed(path / "net.orbax")
+
+
+def _recover(path: Path) -> Path:
+    """``path``; where a save without the atomic exchange was cut between its
+    two renames, the previous checkpoint is moved back to it first."""
+    old = sorted(path.parent.glob(f"{path.name}{_OLD_TAG}*"))
+    if old and not path.exists():
+        os.rename(old[-1], path)
+    return path
+
+
+def _exchange(a: Path, b: Path) -> bool:
+    """Swap the names of two directories in one step (Linux ``renameat2``
+    with ``RENAME_EXCHANGE``); False where the system or file system has no
+    such call."""
+    fn = getattr(ctypes.CDLL(None, use_errno=True), "renameat2", None)
+    if fn is None:
+        return False
+    at_fdcwd, rename_exchange = -100, 2
+    if fn(at_fdcwd, os.fsencode(a), at_fdcwd, os.fsencode(b), rename_exchange) == 0:
+        return True
+    err = ctypes.get_errno()
+    if err in (errno.EINVAL, errno.ENOSYS, errno.EOPNOTSUPP):
+        return False
+    raise OSError(err, os.strerror(err), str(b))
+
+
+def _fsync_dir(path: Path) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_all(path: Path, files) -> None:
+    """Commit ``files`` (name, object; text as-is) as the directory ``path``:
+    each is pickled into a new temporary directory beside it and flushed to
+    disk, and the directory then takes ``path``'s place in one step. A reader
+    sees the previous checkpoint whole or this one whole, never a mix; a
+    writer cut before the swap leaves the temporary, which the next save
+    removes."""
+    tag = f"{os.getpid()}-{threading.get_ident()}"
+    tmp = path.with_name(f"{path.name}{_TMP_TAG}{tag}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    for fname, obj in files:
+        with open(tmp / fname, "wb") as f:
+            if isinstance(obj, str):
+                f.write(obj.encode())
+            else:
+                _JaxCheckpointPickler(f, protocol=4).dump(obj)
+            f.flush()
+            os.fsync(f.fileno())
+    _fsync_dir(tmp)
+    if not path.exists():
+        os.rename(tmp, path)
+    elif _exchange(tmp, path):
+        shutil.rmtree(tmp)
+    else:
+        old = path.with_name(f"{path.name}{_OLD_TAG}{tag}")
+        os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old)
+    _fsync_dir(path.parent)
+
+
+def _run_writer(path: Path, files) -> None:
+    try:
+        _write_all(path, files)
+    except Exception as e:   # re-raised by wait_for_saves
+        _ERRORS.append(e)
+
+
+def wait_for_saves() -> None:
+    """Block until every asynchronous save has committed; re-raise the first
+    error of a background writer."""
+    while _WRITERS:
+        _WRITERS.pop(0).join()
+    if _ERRORS:
+        err = _ERRORS[0]
+        _ERRORS.clear()
+        raise RuntimeError("an asynchronous checkpoint save failed") from err
 
 
 def save_s3_ckpt(model_path, *, net_params: dict, net_buffers: dict,
                  splats: GaussianParams, epoch: int = 0, active_sh_degree: int = 3,
                  name: str = "ckpt", net_adam: TreeAdam = None, splat_adam: TreeAdam = None,
-                 iteration: int = None) -> None:
+                 iteration: int = None, async_save: bool = False) -> None:
     """Write ``net.pkl``, ``info.txt`` and, given the Adam states,
     ``optm.pkl`` in the JAX package's layout. ``net_params``/``net_buffers``
-    and the Adam moments of the net are Flax-named trees (``s3_state_to_jax``)."""
-    path = Path(model_path) / name
-    os.makedirs(path, exist_ok=True)
-    with open(path / "info.txt", "w") as f:
-        f.write(f"Epoch {epoch}\n")
-    _dump({"epoch": epoch, "activate_sh_degree": active_sh_degree, "net_params": net_params,
-           "net_buffers": net_buffers,
-           "splats": GaussianParams(**{k: _np(getattr(splats, k)) for k in PARAM_NAMES})},
-          path / "net.pkl")
+    and the Adam moments of the net are Flax-named numpy trees
+    (``s3_state_to_jax``), which the caller must not change afterwards.
+
+    The files are written into a temporary directory, which then replaces
+    ``<model_path>/<name>`` as a whole (``_write_all``), so a writer killed
+    mid-save leaves the previous checkpoint whole (its net beside its own
+    Adam moments) and at most a temporary, which the next save removes. A
+    save first waits for any earlier asynchronous one, so a same-epoch
+    re-save lands after it. With
+    ``async_save`` the pickling and the writes run on a background thread
+    that overlaps the caller's next steps; ``wait_for_saves`` (and
+    ``load_s3_ckpt``) block until it has committed (the properties of the
+    JAX package's orbax backend, ``training/checkpoints.py:98-124``)."""
+    wait_for_saves()
+    path = _recover(Path(model_path) / name)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    for stale in path.parent.glob(f"{name}{_TMP_TAG}*"):
+        shutil.rmtree(stale)
+    files = []
     if net_adam is not None:
-        _dump({"net_adam": net_adam, "splat_adam": splat_adam, "iteration": int(iteration)},
-              path / "optm.pkl")
+        files.append(("optm.pkl", {"net_adam": net_adam, "splat_adam": splat_adam,
+                                   "iteration": int(iteration)}))
+    files.append(("info.txt", f"Epoch {epoch}\n"))
+    files.append(("net.pkl", {
+        "epoch": epoch, "activate_sh_degree": active_sh_degree, "net_params": net_params,
+        "net_buffers": net_buffers,
+        "splats": GaussianParams(**{k: _np(getattr(splats, k)) for k in PARAM_NAMES})}))
+    if async_save:
+        writer = threading.Thread(target=_run_writer, args=(path, files), daemon=False)
+        writer.start()
+        _WRITERS.append(writer)
+    else:
+        _write_all(path, files)
 
 
 def _flatten(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -144,11 +281,26 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
     return tree
 
 
+def flax_state_to_torch(params: dict, buffers: dict = None) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` (+ ``buffers``) trees (numpy) -> the state_dict of the
+    port module named after them. A ``kernel`` leaf becomes ``weight``: an
+    ``nn.Dense`` kernel (in, out) is transposed, an ``nn.Conv`` kernel goes
+    from HWIO to OIHW. Every other leaf keeps its name and layout."""
+    flat = _flatten(params)
+    flat.update(_flatten(buffers or {}))
+    out = {}
+    for k, v in flat.items():
+        v = np.array(v, np.float32)
+        if k == "kernel" or k.endswith(".kernel"):
+            k = k[:-len("kernel")] + "weight"
+            v = v.T if v.ndim == 2 else v.transpose(3, 2, 0, 1)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
 def avatar_net_state_from_jax(net_params: dict, net_buffers: dict) -> Dict[str, torch.Tensor]:
     """Flax ``params`` + ``buffers`` trees (numpy) -> AvatarNet state_dict."""
-    flat = _flatten(net_params)
-    flat.update(_flatten(net_buffers))
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in flat.items()}
+    return flax_state_to_torch(net_params, net_buffers)
 
 
 def avatar_net_state_to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:

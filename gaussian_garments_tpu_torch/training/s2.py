@@ -10,7 +10,13 @@ compositor forward and backward) → masked L1 and SSIM → xyz/scale hinges
 densification statistics. Densify, prune and opacity reset stay host edits
 between steps (``models/mesh_gaussian.py``, ``models/gaussian.py``).
 
-The JAX step's ``axis_name`` (data parallelism) is not ported.
+With a ``group`` (``parallel.Group``, the counterpart of the JAX step's
+``axis_name``) each rank renders its shard of the camera batch and the step
+reduces what the JAX step reduces, where it does (``training/s2.py:207-262``):
+the mean of the splat or vertex gradients and of the losses, the sum of the
+densification increments, the maximum of the radii, and the metrics. The
+densification statistic ``|∂L/∂mean2D| · k`` uses the rank's own screen
+gradient and camera count, before any reduction, as the JAX step does.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
 from gaussian_garments_tpu_torch.models import mesh_model as MM
 from gaussian_garments_tpu_torch.models.adam import TensorAdam, tensor_adam_init, tensor_adam_step
+from gaussian_garments_tpu_torch.parallel import Group, pmax, pmean, psum
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
 from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
@@ -114,7 +121,8 @@ def s2_losses(params: G.GaussianParams, mesh_v: torch.Tensor, screen_offset: tor
 
 
 def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
-                 raster_cfg: RasterConfig = RasterConfig()) -> Callable:
+                 raster_cfg: RasterConfig = RasterConfig(),
+                 group: Optional[Group] = None) -> Callable:
     """One stage-2 step, ``step(state, cams, bg, xyz_lr, vert_lr) -> (state,
     loss_dict, metrics)``:
 
@@ -122,6 +130,9 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
       energies (the reference creates mesh.v with requires_grad=False);
     - template_p2: the vertices only, with the energies;
     - seq: the vertices only, with the energies.
+
+    With a ``group``, ``cams`` is this rank's shard and every output is the
+    same on every rank.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -143,8 +154,16 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
         else:
             leaves = [mesh_v]
         grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+        loss = {k: v.detach() for k, v in loss.items()}
+        total = total.detach()
+        # the screen gradient stays the rank's own (the JAX step's g_screen)
+        n_reduced = len(grads) - 1 if optimize_splats else len(grads)
+        g_red, loss, total = pmean((list(grads[:n_reduced]), loss, total), group)
+        grads = list(g_red) + list(grads[n_reduced:])
 
         new_state = state
+        radii_max = out["radii"].max().float()
+        n_overflow = out["raster_aux"]["n_overflow"].sum().float()
         with torch.no_grad():
             if optimize_splats:
                 g_params = G.GaussianParams(**dict(zip(G.PARAM_NAMES, grads[:-1])))
@@ -156,13 +175,18 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
                 # batch mean, so k · |∂L/∂mean2D| recovers per-camera norms
                 vis = out["visibility_filter"] & state.aux.alive[None, :]
                 gnorm = torch.linalg.norm(grads[-1], dim=-1) * n_cams
+                accum_inc = torch.where(vis, gnorm, torch.zeros_like(gnorm)).sum(0)
+                denom_inc = vis.sum(0).to(torch.float32)
+                radii_inc = torch.where(vis, out["radii"],
+                                        torch.zeros_like(out["radii"])).amax(0).float()
+                accum_inc, denom_inc, n_overflow = psum((accum_inc, denom_inc, n_overflow),
+                                                        group)
+                radii_inc, radii_max = pmax((radii_inc, radii_max), group)
                 aux = state.aux
                 new_aux = aux.replace(
-                    xyz_gradient_accum=aux.xyz_gradient_accum
-                    + torch.where(vis, gnorm, torch.zeros_like(gnorm)).sum(0)[:, None],
-                    denom=aux.denom + vis.sum(0).to(torch.float32)[:, None],
-                    max_radii2d=torch.maximum(aux.max_radii2d, torch.where(
-                        vis, out["radii"], torch.zeros_like(out["radii"])).amax(0).float()))
+                    xyz_gradient_accum=aux.xyz_gradient_accum + accum_inc[:, None],
+                    denom=aux.denom + denom_inc[:, None],
+                    max_radii2d=torch.maximum(aux.max_radii2d, radii_inc))
                 new_state = new_state.replace(params=new_params, splat_adam=new_adam,
                                               aux=new_aux)
             else:
@@ -170,11 +194,11 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
                                                         vert_lr)
                 new_state = new_state.replace(mesh=state.mesh.replace(v=new_v),
                                               vert_adam=new_vert_adam)
+                n_overflow = psum(n_overflow, group)
+                radii_max = pmax(radii_max, group)
         new_state = new_state.replace(iteration=state.iteration + 1)
-        metrics = {"radii_max": out["radii"].max().float(),
-                   "n_overflow": out["raster_aux"]["n_overflow"].sum().float(),
-                   "loss": total.detach()}
-        return new_state, {k: v.detach() for k, v in loss.items()}, metrics
+        metrics = {"radii_max": radii_max, "n_overflow": n_overflow, "loss": total}
+        return new_state, loss, metrics
 
     return step
 

@@ -24,8 +24,12 @@ opacity and the hinges reduce over alive texels only, so the losses are the
 compact layout's.
 
 Not ported: the JAX package's ``make_s3_pair_counter`` and ``pair_budget``
-probing (the port allocates pairs exactly, so there is no budget to size) and
-the data-parallel ``axis_name``.
+probing (the port allocates pairs exactly, so there is no budget to size).
+
+With a ``group`` (``parallel.Group``, the JAX step's ``axis_name``) each rank
+trains on its shard of the items and the net and splat gradients and the
+losses are averaged over the ranks before Adam (``training/s3.py:336-341``),
+in one all-reduce.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
 from gaussian_garments_tpu_torch.models.adam import TreeAdam, tree_adam_init, tree_adam_step
 from gaussian_garments_tpu_torch.models.avatar_net import apply_shadow
+from gaussian_garments_tpu_torch.parallel import Group, pmean
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
 from gaussian_garments_tpu_torch.training.s2 import _safe_norm
@@ -187,10 +192,12 @@ def _s3_losses(net, net_params, net_buffers, splats, bind, mesh_f, item: S3Item,
 
 def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
                  raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256),
-                 train_gaussians: bool = True):
+                 train_gaussians: bool = True, group: Optional[Group] = None):
     """``step(state, bind, mesh_f, item) -> (state, loss_dict)``. With
     ``train_gaussians=False`` (epoch-1 pre-training, s3_appearance.py:110-113)
-    only the net is updated and the splats' Adam state does not step."""
+    only the net is updated and the splats' Adam state does not step. With a
+    ``group``, ``item`` is this rank's shard and the new state is the same on
+    every rank."""
 
     def step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
         params = {k: v.detach().requires_grad_(True) for k, v in state.net_params.items()}
@@ -203,6 +210,7 @@ def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
         if train_gaussians:
             leaves += [getattr(splats, k) for k in G.PARAM_NAMES]
         grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+        grads, loss = pmean((list(grads), {k: v.detach() for k, v in loss.items()}), group)
         with torch.no_grad():
             g_net = dict(zip(params, grads[:len(params)]))
             new_net, net_adam = tree_adam_step(state.net_params, g_net, state.net_adam,
@@ -214,7 +222,7 @@ def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
                 new_spl, spl_adam = G.adam_step(state.splats, g_spl, state.splat_adam,
                                                 splat_lrs(args))
                 new_state = new_state.replace(splats=new_spl, splat_adam=spl_adam)
-        return new_state, {k: v.detach() for k, v in loss.items()}
+        return new_state, loss
 
     return step
 

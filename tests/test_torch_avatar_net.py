@@ -217,6 +217,12 @@ def test_jax_reads_checkpoint_written_by_port(net_case, tmp_path, rng):
 
 
 def test_orbax_checkpoint_raises(tmp_path):
+    """A committed orbax checkpoint (a manager step directory) is refused by
+    name; an empty ``net.orbax`` left by a writer killed before its first
+    commit is no checkpoint at all."""
     (tmp_path / "ckpt" / "net.orbax").mkdir(parents=True)
+    assert not tckpt.has_s3_ckpt(tmp_path)
+    (tmp_path / "ckpt" / "net.orbax" / "4").mkdir()
+    assert tckpt.has_s3_ckpt(tmp_path)
     with pytest.raises(NotImplementedError, match="orbax"):
         tckpt.load_s3_ckpt(tmp_path)
