@@ -115,7 +115,20 @@ plain version):
 11. the modules no driver runs (``phase_unused_modules``): the wavelet
    ``Discriminator(512, img_channel=6)`` forward (batch 4) and ``lbs`` at
    SMPL-X's shapes on the card against the CPU, timed;
-12. the kernel summary line (``floor_ms``: the launch floor where the probe
+12. the production drive (``phase_prod_drive``), run after phase 9: ``python -m
+   gaussian_garments_tpu_torch.prod_drive`` at full width (12 cameras at 1024²,
+   nx 48, texture 512, SH 3, inference at 940×1280) and a cut depth
+   (``PD_CUTS``), every leg a child process: dataset, s2 template, s2
+   sequence, s3 killed at its first committed checkpoint and resumed to "Epoch
+   5", eval-only in float32 and with ``--unet_bf16``, inference. The phase
+   checks every leg's artifacts, the kill and the resume, finite quality in
+   every leg with the bf16 eval within ``PD_BF16_DB`` dB of float32's, the
+   forward kernel's launches in the dataset, s2, s3, eval and inference legs
+   and the backward's in the s2 and s3 legs, and no JAX module in any child;
+   then it holds both compositor kernels against their plain versions at the
+   drive's own s2 and s3 shapes (1024², over 99% of the tiles empty), and
+   their errors join the kernel summary's ``max_abs_err``;
+13. the kernel summary line (``floor_ms``: the launch floor where the probe
    times one, else null), the card line and the result line.
 
 Iteration counts of phases 7 and 8 are cuts of the production schedule.
@@ -164,6 +177,13 @@ S1_CAMS, S1_POINTS, S1_GREEN, S1_NOISE = 12, 1_000_000, 50_000, 0.001
 S1_DEFECT_NOISE = 0.002         # the noise at which the normals' orientation fails
 S1_RES, S1_FACES = 256, 8000    # the JAX default grid 2^min(13, 8) and --remesh_faces
 S1_MESH = (68, 96)              # rings per half of z, segments around: the body mesh
+PD_ARGS = ["--frames", "2", "--tmpl_iters", "150", "--tmpl_coll", "50", "--frame_iters", "40",
+           "--frame_coll", "10", "--save_iterations", "10", "--device", "cuda"]
+PD_CUTS = ("frames 8 -> 2 (2 inference frames); template iterations 3000 + 600 -> 150 + 50; "
+           "sequence 2400 on frame 0 and 1200 on each other -> 80 and 40, collision 240 -> 10; "
+           "save_iterations 40 -> 10, so that the kill lands at item 10 of epoch 1's 22")
+PD_BF16_DB = 0.1        # the eval-only bf16 PSNR within this of float32's
+PD_TIMEOUT = 900
 S1_CUTS = ("12 cameras (captures such as ActorsHQ's have 160); COLMAP is not run "
            "(--skip_colmap, no COLMAP on the card's machine): fused.ply is planted; its noise "
            "1 mm, since at 2 mm the normals' orientation fails (printed below)")
@@ -227,6 +247,99 @@ def cotangents(torch, dev, h, w, seed):
     g = torch.as_tensor(np.random.RandomState(seed).randn(5, h, w).astype(np.float32),
                         device=dev)
     return g[:3].contiguous(), g[3:4].contiguous(), g[4:5].contiguous()
+
+
+def hold_kernels(torch, dev, proj, h, w, seed, what):
+    """Bin ``proj`` and hold both compositor kernels against their plain
+    versions at that shape (seeded cotangents for the backward); prints the
+    pair count and the share of tiles the frame leaves empty. Returns
+    (errors, pairs, forward output, cotangents)."""
+    from gaussian_garments_tpu_torch.ops import tiles
+
+    pairs = tiles.bin_pairs(proj, image_width=w, image_height=h)
+    k = tiles.composite_tiles_cuda(pairs, image_height=h, image_width=w)
+    p = tiles.composite_tiles_plain(pairs, image_height=h, image_width=w)
+    per_tile = pairs.ranges[1:] - pairs.ranges[:-1]
+    print(f"{what}: {int(pairs.ranges[-1])} pairs, {float((per_tile == 0).float().mean()):.4f} "
+          f"of {per_tile.numel()} tiles empty")
+    live = proj.radii > 0
+    errs = {"composite_fwd": compare_fwd(
+        torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
+    cot = cotangents(torch, dev, h, w, seed)
+    errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
+    return errs, pairs, k, cot
+
+
+@contextlib.contextmanager
+def data_roots(data_root, output_root):
+    """The port's path registry pointed at another run's data and output
+    roots for a while."""
+    from gaussian_garments_tpu_torch.config import DEFAULTS
+
+    old = DEFAULTS.data_root, DEFAULTS.output_root
+    DEFAULTS.data_root, DEFAULTS.output_root = data_root, output_root
+    try:
+        yield
+    finally:
+        DEFAULTS.data_root, DEFAULTS.output_root = old
+
+
+def s2_template_state(torch, dev, out_root, sequence):
+    """The trained Template state under ``out_root`` and frame 0's cameras
+    of ``sequence``: (options, state, cameras)."""
+    import pickle
+    from pathlib import Path
+
+    from gaussian_garments_tpu_torch.config import DEFAULTS
+    from gaussian_garments_tpu_torch.data.readers import FrameDataloader
+    from gaussian_garments_tpu_torch.models import gaussian as G
+    from gaussian_garments_tpu_torch.models import mesh_model as MM
+    from gaussian_garments_tpu_torch.s2_registration import parse_args
+    from gaussian_garments_tpu_torch.training import s2 as S2
+    from gaussian_garments_tpu_torch.utils.io import read_obj
+
+    args, _, op = parse_args(["-s", "subj", "-q", sequence])
+    root = Path(out_root) / "subj"
+    args.subject_out = root
+    cams = FrameDataloader(args, device=dev).load_frame(0)
+    tmpl = root / DEFAULTS.stage2 / "Template"
+    params, aux = G.load_ply(str(tmpl / "local_point_cloud.ply"), 0, device=dev)
+    with open(tmpl / "binding.pkl", "rb") as f:
+        binding = pickle.load(f)
+    tem = read_obj(root / DEFAULTS.stage1 / "template_uv.obj")
+    mesh = MM.create(read_obj(tmpl / "template.obj")["vertices"], tem["faces"], device=dev)
+    return op.extract(args), S2.init_state(params, aux, binding, mesh), cams
+
+
+def s2_project(torch, state, batch, b):
+    """Camera ``b`` of ``batch``'s projection of the stage-2 state's splats."""
+    from gaussian_garments_tpu_torch.renderer import _project
+    from gaussian_garments_tpu_torch.training import s2 as S2
+
+    with torch.no_grad():
+        bundle = S2.splat_bundle(state.params, state.binding, state.aux.alive, state.mesh.v,
+                                 state.mesh.f)
+        return _project(bundle, batch.world_view[b], batch.full_proj[b], batch.campos[b],
+                        width=batch.width, height=batch.height, tanfovx=batch.tanfovx[b],
+                        tanfovy=batch.tanfovy[b], scaling_modifier=1.0, vis_mask=None,
+                        screen_offset=None)
+
+
+def s3_project(torch, run, item, sh_degree):
+    """The first camera of ``item``'s projection of the stage-3 run's texel
+    splats, through its net."""
+    from gaussian_garments_tpu_torch.renderer import _project
+    from gaussian_garments_tpu_torch.training import s3 as S3
+
+    net, state = run.net, run.state
+    with torch.no_grad():
+        bundle, vis, _ = S3._s3_project(
+            net, S3._cast_net_vars(net, (state.net_params, state.net_buffers)),
+            state.splats, run.bind, run.mesh_f, item, 0, sh_degree=sh_degree)
+        return _project(bundle, item.world_view[0], item.full_proj[0], item.campos[0],
+                        width=item.width, height=item.height, tanfovx=item.tanfovx[0],
+                        tanfovy=item.tanfovy[0], scaling_modifier=1.0, vis_mask=vis,
+                        screen_offset=None), vis
 
 
 def summed_terms(torch, pairs, out):
@@ -1025,34 +1138,16 @@ def phase_s2_split(torch, dev, out_root):
     Template state and 4 of frame 0's cameras, each piece on the host clock
     around synchronize (mean of 5); then both kernels at that shape against
     their plain versions, timed."""
-    import pickle
-    from pathlib import Path
-
-    import numpy as np
-    from gaussian_garments_tpu_torch.config import DEFAULTS
-    from gaussian_garments_tpu_torch.data.readers import FrameDataloader
     from gaussian_garments_tpu_torch.models import gaussian as G
     from gaussian_garments_tpu_torch.models import mesh_model as MM
     from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.renderer import BatchedCameras, _project
-    from gaussian_garments_tpu_torch.s2_registration import parse_args
     from gaussian_garments_tpu_torch.training import s2 as S2
-    from gaussian_garments_tpu_torch.utils.io import read_obj
     from gaussian_garments_tpu_torch.utils.losses import ssim
 
-    args, _, op = parse_args(["-s", "subj", "-q", "seq"])
-    opt = op.extract(args)
-    root = Path(out_root) / "subj"
-    args.subject_out = root
-    cams = FrameDataloader(args, device=dev).load_frame(0)[1:1 + S2_PER_STEP]
+    opt, state, cams = s2_template_state(torch, dev, out_root, "seq")
+    cams = cams[1:1 + S2_PER_STEP]
     batch = BatchedCameras.from_cameras(cams)
-    tmpl = root / DEFAULTS.stage2 / "Template"
-    params, aux = G.load_ply(str(tmpl / "local_point_cloud.ply"), 0, device=dev)
-    with open(tmpl / "binding.pkl", "rb") as f:
-        binding = pickle.load(f)
-    tem = read_obj(root / DEFAULTS.stage1 / "template_uv.obj")
-    mesh = MM.create(read_obj(tmpl / "template.obj")["vertices"], tem["faces"], device=dev)
-    state = S2.init_state(params, aux, binding, mesh)
     bg = torch.zeros(3, device=dev)
     w, h = batch.width, batch.height
     reps, ms = 5, {}
@@ -1104,20 +1199,9 @@ def phase_s2_split(torch, dev, out_root):
         print(f"  {k}: {v:.3f}")
 
     with torch.no_grad():
-        bundle = S2.splat_bundle(state.params, state.binding, state.aux.alive, state.mesh.v,
-                                 state.mesh.f)
-        proj = _project(bundle, batch.world_view[0], batch.full_proj[0], batch.campos[0],
-                        width=w, height=h, tanfovx=batch.tanfovx[0], tanfovy=batch.tanfovy[0],
-                        scaling_modifier=1.0, vis_mask=None, screen_offset=None)
-        pairs = tiles.bin_pairs(proj, image_width=w, image_height=h)
-        k = tiles.composite_tiles_cuda(pairs, image_height=h, image_width=w)
-        p = tiles.composite_tiles_plain(pairs, image_height=h, image_width=w)
-        live = proj.radii > 0
+        proj = s2_project(torch, state, batch, 0)
         what = f"s2 shape, camera {cams[0].image_name} @ {w}x{h}"
-        errs = {"composite_fwd": compare_fwd(
-            torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
-        cot = cotangents(torch, dev, h, w, 5)
-        errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
+        errs, pairs, k, cot = hold_kernels(torch, dev, proj, h, w, 5, what)
         timing = time_both(torch, tiles, proj, pairs, k, cot, h, w, what)
     return errs, timing, ms
 
@@ -1341,14 +1425,8 @@ def phase_s3_split(torch, dev, argv=S3_ARGS):
         print(f"  {k}: {v:.3f}")
 
     with torch.no_grad():
-        k = tiles.composite_tiles_cuda(pairs, image_height=h, image_width=w)
-        p = tiles.composite_tiles_plain(pairs, image_height=h, image_width=w)
-        live = proj.radii > 0
         what = f"s3 shape, camera {run.dataset[0]['camera'].image_name} @ {w}x{h}"
-        errs = {"composite_fwd": compare_fwd(
-            torch, k, p, float(proj.depth[live].max() - proj.depth[live].min()), what)}
-        cot = cotangents(torch, dev, h, w, 5)
-        errs["composite_bwd"] = compare_bwd(torch, tiles, pairs, k, cot, h, w, 1e-4, what)
+        errs, pairs, k, cot = hold_kernels(torch, dev, proj, h, w, 5, what)
         timing = time_both(torch, tiles, proj, pairs, k, cot, h, w, what)
     return errs, timing, ms
 
@@ -1930,6 +2008,124 @@ def dp_drivers(torch, dev, out_root, backend, fresh):
               f"{moves[k][0]:.3g}")
 
 
+def drive_kernel_checks(torch, dev, root):
+    """Both compositor kernels against their plain versions at the production
+    drive's own shapes, from its artifacts under ``root``: the trained
+    Template on frame 0's first 1024² camera (the s2 legs' frames, where the
+    sheet covers under 1% of the frame and most tiles are empty), and the
+    first s3 training item through the resumed checkpoint (texture 512, SH 3).
+    Returns {kernel: max error}."""
+    from gaussian_garments_tpu_torch import s3_appearance
+    from gaussian_garments_tpu_torch.renderer import BatchedCameras
+
+    with data_roots(os.path.join(root, "data"), os.path.join(root, "out")):
+        _, state, cams = s2_template_state(torch, dev, os.path.join(root, "out"), "seq1")
+        batch = BatchedCameras.from_cameras(cams[:1])
+        w, h = batch.width, batch.height
+        errs, *_ = hold_kernels(torch, dev, s2_project(torch, state, batch, 0), h, w, 7,
+                                f"prod drive s2 shape, camera {cams[0].image_name} @ {w}x{h}")
+        _, run = s3_appearance.prepare(["-s", "subj", "--texture_size", str(TEXTURE),
+                                        "--sh_degree", str(SH_DEGREE), "--ckpt_backend", "orbax",
+                                        "--device", "cuda"])
+        check(run.start_epoch == 6, "the prod drive's s3 checkpoint did not resume")
+        item = run.make_item([run.dataset[0]])
+        proj, vis = s3_project(torch, run, item, SH_DEGREE)
+        s3_errs, *_ = hold_kernels(
+            torch, dev, proj, item.height, item.width, 8,
+            f"prod drive s3 shape, camera {run.dataset[0]['camera'].image_name} @ "
+            f"{item.width}x{item.height}, {run.n_texels} texel splats, {int(vis.sum())} visible")
+    return {name: max(errs[name], s3_errs[name]) for name in errs}
+
+
+def phase_prod_drive(torch, tmp):
+    """The port's production drive (``python -m gaussian_garments_tpu_torch.prod_drive``)
+    at full width and a cut depth, each leg a child process: the artifacts,
+    the event kill and the resume, finite quality in every leg with bf16 within
+    ``PD_BF16_DB`` of float32, the kernels' launches in each leg and no JAX
+    module in any child; then both kernels against their plain versions at
+    the drive's s2 and s3 shapes (``drive_kernel_checks``). Returns
+    ({kernel: {leg: launches}}, {kernel: max error}, seconds)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "prod_drive")
+    print(f"prod drive cuts: {PD_CUTS}; full width: 12 cameras at 1024x1024, nx 48, texture "
+          f"512, SH 3, inference at 940x1280")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    res = subprocess.run([sys.executable, "-m", "gaussian_garments_tpu_torch.prod_drive",
+                          "--root", root, "--call", "chip_smoke", *PD_ARGS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=PD_TIMEOUT)
+    check(res.returncode == 0, f"prod drive: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+          f"{res.stderr[-4000:]}")
+    with open(os.path.join(root, "prod_drive_summary.json")) as f:
+        summary = json.load(f)
+    legs = summary["legs"]
+    check(set(legs) == {"dataset", "s2_template", "s2_sequence", "s3_first", "s3_resume",
+                        "eval_f32", "eval_bf16", "inference"}, f"prod drive legs {sorted(legs)}")
+    for name, leg in legs.items():
+        print(f"prod drive {name}: {leg['wall_s']} s" + "".join(
+            f", {k} {v}" for k, v in leg.get("launches", {}).items()))
+        check(leg.get("foreign_modules", []) == [], f"prod drive {name} imported "
+              f"{leg.get('foreign_modules')}")
+    check(summary["foreign_modules"] == [], "the prod drive imported JAX")
+
+    out = os.path.join(root, "out", "subj")
+    expect = [os.path.join("stage1", "template_uv.obj"),
+              os.path.join("stage2", "Template", "template.obj"),
+              os.path.join("stage3", "ckpt", "net.pkl"), os.path.join("stage3", "ckpt", "optm.pkl"),
+              os.path.join("stage3", "logs", "train.jsonl")]
+    expect += [os.path.join("stage2", "seq1", "meshes", f"frame_{t:05d}.obj") for t in range(2)]
+    missing = [f for f in expect if not os.path.exists(os.path.join(out, f))]
+    check(not missing, f"missing prod drive artifacts: {missing}")
+    renders = sorted(os.listdir(os.path.join(root, "render_out", "renders")))
+    check(renders == ["00000.png", "00001.png"] and summary["inference_frames"] == 2,
+          f"prod drive renders {renders}")
+
+    k = summary["s3_resumed_from"]
+    check(summary["s3_interrupted"] and 1 <= summary["s3_kill_epoch"] <= 4,
+          f"prod drive kill: {summary.get('s3_interrupted')}, epoch "
+          f"{summary.get('s3_kill_epoch')}")
+    check(k is not None and 1 <= int(k.split()[-1]) <= 4, f"prod drive resume: {k!r}")
+    check(summary["s3_final_info"] == "Epoch 5", f"prod drive ended at {summary['s3_final_info']}")
+    print(f"prod drive s3: killed at its first committed checkpoint (Epoch "
+          f"{summary['s3_kill_epoch']}) after {summary['s3_first_leg_s']} s; '{k}'; ended at "
+          f"'{summary['s3_final_info']}'")
+
+    quality = [q[key] for q in summary["s2_frame_quality"].values()
+               for key in ("test_psnr", "test_ssim")]
+    quality += [summary["s3_eval"][key] for key in ("eval_psnr", "eval_ssim")]
+    evals = summary["unet_bf16_delta"]
+    quality += [evals[tag][key] for tag in ("f32", "bf16") for key in ("eval_psnr", "eval_ssim")]
+    check(len(summary["s2_frame_quality"]) == 2 and all(np.isfinite(v) for v in quality),
+          f"prod drive quality {quality}")
+    gap = evals["bf16"]["eval_psnr"] - evals["f32"]["eval_psnr"]
+    for name, q in summary["s2_frame_quality"].items():
+        print(f"prod drive s2 {name}: test PSNR {q['test_psnr']} dB, SSIM {q['test_ssim']}")
+    print(f"prod drive s3 eval at epoch {summary['s3_eval']['epoch']}: PSNR "
+          f"{summary['s3_eval']['eval_psnr']:.4f} dB, SSIM {summary['s3_eval']['eval_ssim']:.4f}; "
+          f"eval-only f32 {evals['f32']['eval_psnr']} dB, bf16 {evals['bf16']['eval_psnr']} dB "
+          f"(bf16 - f32 {gap:+.4f} dB, limit {PD_BF16_DB})")
+    check(abs(gap) <= PD_BF16_DB, f"prod drive bf16 eval {gap:+.4f} dB off float32")
+    for mode, m in summary["s2_modes"].items():
+        print(f"prod drive s2 {mode}: {m['iterations']} iterations, {m['s_per_iteration']:.4f} "
+              f"s/iteration")
+    for kind, m in summary["s3_steps"].items():
+        print(f"prod drive s3 resume {kind}: {m['n']} steps, {m['s_per_step']:.4f} s/step")
+    print("prod drive inference, s/frame: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in summary["inference_split"].items()))
+
+    paths = {"dataset": ["dataset"], "s2": ["s2_template", "s2_sequence"], "s3": ["s3_resume"],
+             "eval": ["eval_f32", "eval_bf16"], "inference": ["inference"]}
+    launches = {kernel: {path: sum(legs[leg]["launches"][kernel] for leg in names)
+                         for path, names in paths.items()}
+                for kernel in ("composite_fwd", "composite_bwd")}
+    errs = drive_kernel_checks(torch, torch.device("cuda", 0), root)
+    secs = time.perf_counter() - t0
+    print(f"prod drive phase: {secs:.1f} s")
+    return launches, errs, secs
+
+
 def _flat(tree, prefix=""):
     """A nested dict of arrays as ``{"a.b": array}``."""
     import numpy as np
@@ -2056,6 +2252,7 @@ def main() -> int:
         phase_unused_modules(torch, dev)
         dp_secs = time.perf_counter() - t_new
         s1_secs = phase_s1(torch, dev, data_root, out_root, card)[0]
+        prod_launches, prod_errs, prod_secs = phase_prod_drive(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     bad = sorted(m for m in sys.modules
@@ -2072,8 +2269,13 @@ def main() -> int:
         check(bf16_launches[name] > 0, f"{name} was not launched on the s3 --unet_bf16 path")
         check(dense_launches[name] > 0, f"{name} was not launched on the s3 --dense_texels path")
         check(dp_launches[name] > 0, f"{name} was not launched by the data-parallel ranks")
+        prod_paths = ("dataset", "s2", "s3", "eval", "inference") if name == "composite_fwd" \
+            else ("s2", "s3")
+        for path in prod_paths:
+            check(prod_launches[name][path] > 0,
+                  f"{name} was not launched on the prod drive's {path} legs")
         max_err = max(errs[name], s2_errs[name], s3_errs[name], bf16_errs[name], dense_errs[name],
-                      inf_err if name == "composite_fwd" else 0.0)
+                      prod_errs[name], inf_err if name == "composite_fwd" else 0.0)
         kernels.append({"name": name, "route": "cuda", "source": relpath(source),
                         "replaces": replaces, "launches": s3_launches[name],
                         "max_abs_err": max_err, "ms": ms,
@@ -2090,7 +2292,8 @@ def main() -> int:
           f"kernels not driven: {set(kcuda.KERNELS) - registered}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, {added:.1f} s of it in the "
           f"phases of the bf16, dense and exact-visibility paths, {dp_secs:.1f} s in the "
-          f"data-parallel and unused-module phases, {s1_secs:.1f} s in the stage-1 phase")
+          f"data-parallel and unused-module phases, {s1_secs:.1f} s in the stage-1 phase, "
+          f"{prod_secs:.1f} s in the prod drive phase")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

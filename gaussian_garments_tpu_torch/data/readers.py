@@ -1,5 +1,5 @@
 """Frame and dataset readers (port of ``gaussian_garments_tpu/data/readers.py``),
-reduced to one process.
+each process loading every camera.
 
 - ``FrameDataloader``: stage 2's whole-frame loader (reference
   ``scene/dataset_readers.py:53-159``): per-camera filename indexing with the
@@ -9,9 +9,14 @@ reduced to one process.
 - ``AvatarDataset``: stage 3's (sequence, frame, camera) items over every
   sequence of a subject (reference ``scene/dataloader.py:17-283``), with the
   llffhold split, a per-epoch reshuffle in the JAX package's order and the
-  AO/normal bake (``data/baker.py``) cached per frame. The JAX package's
-  per-host slicing (``process_index``/``process_count``) belongs to data
-  parallelism, which is not ported.
+  AO/normal bake (``data/baker.py``) cached per frame.
+
+Data parallelism is ported (``parallel/``, the drivers' ``--data_parallel``),
+but not the JAX package's per-host slicing of the camera list
+(``process_index``/``process_count``), by design: every rank loads every
+camera, and in stage 3 the whole batch, so that the numpy stream of random
+backgrounds stays in step on every rank (``s3_appearance.py``), and each rank
+renders its own contiguous block of the batch (``parallel.shard``).
 """
 from __future__ import annotations
 

@@ -32,7 +32,10 @@ starting state is broadcast. Without a launcher the flag runs one process.
 ``--ckpt_backend orbax`` keeps the JAX flag's two properties over the pickle
 layout, since reading or writing orbax needs jax: mid-epoch saves are
 asynchronous (the write overlaps the next steps, and the run waits for it at
-the end) and every file is committed by an atomic rename. An orbax checkpoint
+the end) and a save is committed whole: its files are written into a
+temporary directory, which then takes the place of ``ckpt/`` in one step
+(``training/checkpoints.py::_write_all``), so a run killed mid-save leaves the
+previous checkpoint whole. An orbax checkpoint
 is refused by name; ``scripts/orbax_to_pickle.py`` converts one where jax is.
 
 ``main`` returns a stats dict: per step kind (``pre``: net only; ``full``:
