@@ -1,0 +1,2 @@
+"""Device kernels, copies and sets in the trace a step, s2 cells."""
+from perfbench.harness.readers import kernels_per_step as read  # noqa: F401
