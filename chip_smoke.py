@@ -900,18 +900,25 @@ def frame0_kernel_check(torch, simu, camera, what, framing=False):
     return err
 
 
+def compositor_launches(since=None) -> dict:
+    """The compositor kernels' launches in this process, less ``since``."""
+    from gaussian_garments_tpu_torch.ops import tiles
+
+    now = tiles.launches()
+    return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+
 def run_inference(torch, inference, argv, what):
     """``inference.main`` with the compositor's launches counted; checks the
     PNG rows and the coverage and prints the per-frame split."""
     import numpy as np
     from PIL import Image
-    from gaussian_garments_tpu_torch.ops import tiles
 
-    tiles.composite_tiles_cuda.launches = 0
+    before = compositor_launches()
     t0 = time.perf_counter()
     stats = inference.main(argv)
     wall = time.perf_counter() - t0
-    launches = tiles.composite_tiles_cuda.launches
+    launches = compositor_launches(before)["composite_fwd"]
     out = argv[argv.index("--output_path") + 1]
     pngs = sorted(os.listdir(os.path.join(out, "renders")))
     check(len(pngs) == FRAMES, f"{what}: expected {FRAMES} PNGs, got {pngs}")
@@ -1036,7 +1043,6 @@ def phase_s2(torch, dev, data_root, out_root):
     import numpy as np
     from gaussian_garments_tpu_torch import s2_registration
     from gaussian_garments_tpu_torch.data.synthetic import write_reference_layout
-    from gaussian_garments_tpu_torch.ops import tiles
 
     t0 = time.perf_counter()
     info = write_reference_layout(data_root, out_root, "subj", "seq", n_cams=S2_CAMS,
@@ -1058,12 +1064,11 @@ def phase_s2(torch, dev, data_root, out_root):
     modes, quality = {}, {}
     torch.cuda.reset_peak_memory_stats(dev)
     for run, extra in (("template", S2_TEMPLATE), ("sequence", S2_SEQUENCE)):
-        tiles.composite_tiles_cuda.launches = 0
-        tiles.composite_tiles_backward_cuda.launches = 0
+        before = compositor_launches()
         t0 = time.perf_counter()
         stats = s2_registration.main(common + extra)
         wall = time.perf_counter() - t0
-        fwd, bwd = tiles.composite_tiles_cuda.launches, tiles.composite_tiles_backward_cuda.launches
+        fwd, bwd = compositor_launches(before).values()
         launches["composite_fwd"] += fwd
         launches["composite_bwd"] += bwd
         iters = sum(m["iterations"] for m in stats["modes"].values())
@@ -1281,20 +1286,17 @@ def phase_s3(torch, dev, out_root, subject="subj", flags=()):
     import numpy as np
     from gaussian_garments_tpu_torch import s3_appearance
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
-    from gaussian_garments_tpu_torch.ops import tiles
     from gaussian_garments_tpu_torch.training.checkpoints import (
         avatar_net_state_from_jax, load_s3_ckpt, s3_state_from_jax)
 
     what = " ".join(["s3", *flags])
     print(f"{what} cuts: {S3_CUTS}")
-    tiles.composite_tiles_cuda.launches = 0
-    tiles.composite_tiles_backward_cuda.launches = 0
+    before = compositor_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     stats = s3_appearance.main(s3_argv(subject, *flags))
     wall = time.perf_counter() - t0
-    launches = {"composite_fwd": tiles.composite_tiles_cuda.launches,
-                "composite_bwd": tiles.composite_tiles_backward_cuda.launches}
+    launches = compositor_launches(before)
     peak = torch.cuda.max_memory_allocated(dev)
     steps = stats["steps"]
     n_steps = steps["pre"]["n"] + steps["full"]["n"]

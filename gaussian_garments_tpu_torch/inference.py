@@ -83,8 +83,9 @@ def _synchronize(dev: torch.device) -> None:
 @torch.no_grad()
 def render_frame(simu, idx: int, camera, bg: torch.Tensor, sh_degree: int, cfg):
     """One frame. Returns (uint8 row (H, 3W, 3) numpy, timings, garment
-    coverage); with exact visibility the timings hold the ray cast as
-    ``raycast_s``, apart from ``device_s``."""
+    coverage). ``render_s`` is the host and device wall after the bake; with
+    exact visibility the timings hold the ray cast as ``raycast_s``, apart
+    from ``render_s``."""
     from gaussian_garments_tpu_torch.doll import body_mask_and_image, composite, concat_bundle
     from gaussian_garments_tpu_torch.renderer import render
 
@@ -115,9 +116,9 @@ def render_frame(simu, idx: int, camera, bg: torch.Tensor, sh_degree: int, cfg):
         panels.append(composite(out["render"], out["alpha"][0], body_image, body_mask))
     row = torch.cat(panels, dim=2).permute(1, 2, 0)
     row = torch.clamp(torch.round(row * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
-    timings = {"bake_mesh_io_s": t1 - t0, "device_s": time.perf_counter() - t1}
+    timings = {"bake_mesh_io_s": t1 - t0, "render_s": time.perf_counter() - t1}
     if raycast_s is not None:
-        timings["device_s"] -= raycast_s
+        timings["render_s"] -= raycast_s
         timings["raycast_s"] = raycast_s
     return row, timings, float(coverage)
 

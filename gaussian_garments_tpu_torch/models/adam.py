@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from gaussian_garments_tpu_torch.utils import logging as log
+
 
 class TensorAdam(NamedTuple):
     step: int
@@ -28,18 +30,27 @@ def bias_corrections(step: int, b1: float, b2: float):
             1.0 - torch.tensor(b2, dtype=torch.float32) ** s)
 
 
+def to_device(bcs, device):
+    """The host's bias corrections copied to ``device``. On a card each copy
+    from pageable host memory waits for the stream: a host sync each."""
+    with log.span("sync"):
+        log.count("host_syncs", len(bcs))
+        return tuple(x.to(device) for x in bcs)
+
+
 def adam_update(p, g, mu, nu, lr, bc1, bc2, b1: float = 0.9, b2: float = 0.999,
                 eps: float = 1e-15):
-    """One Adam update of one tensor: (new p, new mu, new nu)."""
+    """One Adam update of one tensor: (new p, new mu, new nu); ``bc1`` and
+    ``bc2`` on ``p``'s device."""
     mu = b1 * mu + (1 - b1) * g
     nu = b2 * nu + (1 - b2) * g * g
-    return p - lr * (mu / bc1.to(p.device)) / (torch.sqrt(nu / bc2.to(p.device)) + eps), mu, nu
+    return p - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps), mu, nu
 
 
 def tensor_adam_step(p: torch.Tensor, g: torch.Tensor, state: TensorAdam, lr,
                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15):
     step = state.step + 1
-    bc1, bc2 = bias_corrections(step, b1, b2)
+    bc1, bc2 = to_device(bias_corrections(step, b1, b2), p.device)
     new_p, mu, nu = adam_update(p, g, state.mu, state.nu, lr, bc1, bc2, b1, b2, eps)
     return new_p, TensorAdam(step, mu, nu)
 
@@ -62,9 +73,8 @@ def tree_adam_step(params: dict, grads: dict, state: TreeAdam, lr, b1: float = 0
                    b2: float = 0.999, eps: float = 1e-15):
     """One Adam step of every tensor of ``params`` at learning rate ``lr``."""
     step = state.step + 1
-    # moved to the card once, not once per tensor in adam_update
-    dev = next(iter(params.values())).device
-    bc1, bc2 = (x.to(dev) for x in bias_corrections(step, b1, b2))
+    # moved to the card once, not once per tensor
+    bc1, bc2 = to_device(bias_corrections(step, b1, b2), next(iter(params.values())).device)
     new_p, mu, nu = {}, {}, {}
     for k, p in params.items():
         new_p[k], mu[k], nu[k] = adam_update(p, grads[k], state.mu[k], state.nu[k], lr, bc1, bc2,

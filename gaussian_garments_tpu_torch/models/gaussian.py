@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from gaussian_garments_tpu_torch import resolve_device
-from gaussian_garments_tpu_torch.models.adam import adam_update, bias_corrections
+from gaussian_garments_tpu_torch.models.adam import adam_update, bias_corrections, to_device
 from gaussian_garments_tpu_torch.utils.general import (get_expon_lr_func, inverse_sigmoid,
                                                        knn_numpy)
 from gaussian_garments_tpu_torch.utils.quaternion import normalize as quat_normalize
@@ -174,9 +174,10 @@ def adam_step(params: GaussianParams, grads: GaussianParams, state: AdamState,
     bc1, bc2 = bias_corrections(step, b1, b2)
     new_p, new_m, new_v = {}, {}, {}
     for k in PARAM_NAMES:
+        p = getattr(params, k)
         new_p[k], new_m[k], new_v[k] = adam_update(
-            getattr(params, k), getattr(grads, k), getattr(state.mu, k), getattr(state.nu, k),
-            lrs[k], bc1, bc2, b1, b2, eps)
+            p, getattr(grads, k), getattr(state.mu, k), getattr(state.nu, k), lrs[k],
+            *to_device((bc1, bc2), p.device), b1, b2, eps)
     return GaussianParams(**new_p), AdamState(step, GaussianParams(**new_m),
                                               GaussianParams(**new_v))
 

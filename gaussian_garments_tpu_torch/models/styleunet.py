@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaussian_garments_tpu_torch.utils import logging as log
+
 BLUR = (1, 3, 3, 1)
 
 
@@ -61,8 +63,10 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
     px0, px1, py0, py1 = pad
     assert min(pad) >= 0, "negative pads unsupported"
     n, c, h, w = x.shape
-    kflip = torch.as_tensor(np.ascontiguousarray(kernel[::-1, ::-1]), dtype=x.dtype,
-                            device=x.device)
+    with log.span("sync"):      # a copy from the host: on a card it waits for the stream
+        log.count("host_syncs")
+        kflip = torch.as_tensor(np.ascontiguousarray(kernel[::-1, ::-1]), dtype=x.dtype,
+                                device=x.device)
     weight = kflip[None, None].expand(c, 1, *kflip.shape).contiguous()
     if up > 1:
         xu = x.new_zeros((n, c, h * up, w * up))

@@ -22,7 +22,9 @@ Port of ``gaussian_garments_tpu/ops/pallas_tiles.py``:
   tensors and ``composite_tiles_plain``, the same math in plain torch, for
   CPU tensors; its backward likewise runs ``csrc/composite_bwd.cu`` or
   ``composite_tiles_backward_plain``. Both kernels are built with nvcc at
-  first use and loaded with ctypes (``ops/cuda.py``).
+  first use and loaded with ctypes (``ops/cuda.py``); each launch adds one
+  to the counter ``composite_fwd.launches`` or ``composite_bwd.launches``
+  (``utils/logging.count``), which ``launches()`` reads.
 
 Tiles are 16 wide × 32 tall, as in the JAX package. The kernels skip, per
 warp of 8×4 pixels, the splats whose warp box misses the warp; they compute
@@ -40,6 +42,7 @@ import torch
 from gaussian_garments_tpu_torch.ops.cuda import check_tensor, launch, route, stream
 from gaussian_garments_tpu_torch.ops.projection import ProjectedGaussians
 from gaussian_garments_tpu_torch.ops.rasterizer_ref import ALPHA_EPS, ALPHA_MAX, T_EPS
+from gaussian_garments_tpu_torch.utils import logging as log
 
 TILE_W = 16
 TILE_H = 32
@@ -104,7 +107,9 @@ def _rects(proj: ProjectedGaussians, ell: Ellipse, tiles_x: int, tiles_y: int):
     (N, 2) int64: both axes in each op, with the same float32 roundings
     (the divisions are by powers of two)."""
     means2d, radii = proj.means2d, proj.radii
-    size, grid, zero = means2d.new_tensor([[TILE_W, TILE_H], [tiles_x, tiles_y], [0, 0]])
+    with log.span("sync"):      # a copy from the host: on a card it waits for the stream
+        log.count("host_syncs")
+        size, grid, zero = means2d.new_tensor([[TILE_W, TILE_H], [tiles_x, tiles_y], [0, 0]])
     r = radii.to(torch.float32)[:, None]
     e = torch.where(ell.rect_ok[:, None], ell.ext, r)         # ≥ 0, +inf or NaN
     e = torch.minimum(torch.where(e < math.inf, e, r), r)
@@ -200,9 +205,10 @@ def bin_pairs(proj: ProjectedGaussians, *, image_width: int, image_height: int,
     """Duplicate-with-keys, sort and per-tile ranges (see module doc). Only
     ``feats`` carries autograd; the integer binning runs without it."""
     tiles_x, tiles_y = tile_grid(image_width, image_height)
-    with torch.no_grad():
-        binned = _bin(proj, ellipse(proj), tiles_x, tiles_y, max_tiles_side)
-    return binned._replace(feats=splat_features(proj))
+    with log.span("bin"):
+        with torch.no_grad():
+            binned = _bin(proj, ellipse(proj), tiles_x, tiles_y, max_tiles_side)
+        return binned._replace(feats=splat_features(proj))
 
 
 def _bin(proj, ell, tiles_x, tiles_y, side) -> TilePairs:
@@ -214,7 +220,9 @@ def _bin(proj, ell, tiles_x, tiles_y, side) -> TilePairs:
     # entry e = splat·side + row: its pair count, its first tile, its pairs
     count, first_tile = (v.reshape(-1) for v in row_spans(proj, ell, lo, hi, alive, side=side,
                                                             tiles_x=tiles_x))
-    total = int(count.sum())
+    with log.span("sync"):
+        log.count("host_syncs")
+        total = int(count.sum())
     e = torch.repeat_interleave(torch.arange(n * side, device=dev), count, output_size=total)
     tile = ((first_tile - (torch.cumsum(count, 0) - count))[e]
             + torch.arange(total, device=dev))
@@ -414,11 +422,8 @@ def composite_tiles_cuda(pairs: TilePairs, *, image_height: int,
                pairs.tiles_x * pairs.tiles_y, pairs.tiles_x, w, h, color.data_ptr(),
                depth.data_ptr(), alpha.data_ptr(), final_logt.data_ptr(), last_pair.data_ptr(),
                stream(dev))
-    composite_tiles_cuda.launches += 1
+    log.count("composite_fwd.launches")
     return Composite(color, depth, alpha, final_logt, last_pair)
-
-
-composite_tiles_cuda.launches = 0
 
 
 def composite_tiles_backward_cuda(pairs: TilePairs, final_logt: torch.Tensor,
@@ -441,11 +446,15 @@ def composite_tiles_backward_cuda(pairs: TilePairs, final_logt: torch.Tensor,
                final_logt.data_ptr(), last_pair.data_ptr(), g_color.data_ptr(),
                g_depth.data_ptr(), g_alpha.data_ptr(), pairs.tiles_x * pairs.tiles_y,
                pairs.tiles_x, w, h, d_feats.data_ptr(), stream(dev))
-    composite_tiles_backward_cuda.launches += 1
+    log.count("composite_bwd.launches")
     return d_feats
 
 
-composite_tiles_backward_cuda.launches = 0
+def launches() -> dict:
+    """The compositor kernels' launches so far in this process (the
+    ``composite_{fwd,bwd}.launches`` counters)."""
+    c = log.counters()
+    return {k: c.get(f"{k}.launches", 0) for k in ("composite_fwd", "composite_bwd")}
 
 
 class _Composite(torch.autograd.Function):

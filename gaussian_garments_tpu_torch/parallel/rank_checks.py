@@ -87,8 +87,7 @@ def max_diffs(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray]) -> Dict[st
 def _launches() -> Dict[str, int]:
     from gaussian_garments_tpu_torch.ops import tiles
 
-    return {"composite_fwd": tiles.composite_tiles_cuda.launches,
-            "composite_bwd": tiles.composite_tiles_backward_cuda.launches}
+    return tiles.launches()
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:

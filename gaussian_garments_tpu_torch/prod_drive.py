@@ -164,13 +164,10 @@ def run_child(driver: str, argv: Sequence[str]) -> int:
 
     fn = dataset_main if driver == "dataset" else \
         importlib.import_module(f"gaussian_garments_tpu_torch.{driver}").main
-    tiles.composite_tiles_cuda.launches = 0
-    tiles.composite_tiles_backward_cuda.launches = 0
     t0 = time.perf_counter()
     stats = fn(list(argv))
     report = {"driver": driver, "seconds": time.perf_counter() - t0,
-              "launches": {"composite_fwd": tiles.composite_tiles_cuda.launches,
-                           "composite_bwd": tiles.composite_tiles_backward_cuda.launches},
+              "launches": tiles.launches(),
               "foreign_modules": foreign_modules(), "stats": _jsonable(stats)}
     print("PROD_LEG " + json.dumps(report), flush=True)
     return 0

@@ -23,6 +23,7 @@ import torch
 from gaussian_garments_tpu_torch.ops.projection import project_gaussians
 from gaussian_garments_tpu_torch.ops.rasterizer_ref import rasterize_reference
 from gaussian_garments_tpu_torch.ops.tiles import rasterize_tiles
+from gaussian_garments_tpu_torch.utils import logging as log
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,17 +66,18 @@ def _rasterize(proj, *, image_height, image_width, bg, config: RasterConfig):
 
 def _project(bundle: SplatBundle, world_view, full_proj, campos, *, width, height, tanfovx,
              tanfovy, scaling_modifier, vis_mask, screen_offset):
-    opac = bundle.opacity.reshape(-1)
-    if vis_mask is not None:
-        opac = opac * vis_mask.to(opac.dtype)
-    return project_gaussians(
-        bundle.means3d, world_view, full_proj, campos, image_width=width,
-        image_height=height, tanfovx=tanfovx, tanfovy=tanfovy,
-        scales=bundle.scales, rotations=bundle.rotations,
-        cov3d_precomp=bundle.cov3d_precomp, shs=bundle.shs,
-        colors_precomp=bundle.colors_precomp, opacities=opac,
-        sh_degree=bundle.active_sh_degree, scaling_modifier=scaling_modifier,
-        screen_offset=screen_offset)
+    with log.span("project"):
+        opac = bundle.opacity.reshape(-1)
+        if vis_mask is not None:
+            opac = opac * vis_mask.to(opac.dtype)
+        return project_gaussians(
+            bundle.means3d, world_view, full_proj, campos, image_width=width,
+            image_height=height, tanfovx=tanfovx, tanfovy=tanfovy,
+            scales=bundle.scales, rotations=bundle.rotations,
+            cov3d_precomp=bundle.cov3d_precomp, shs=bundle.shs,
+            colors_precomp=bundle.colors_precomp, opacities=opac,
+            sh_degree=bundle.active_sh_degree, scaling_modifier=scaling_modifier,
+            screen_offset=screen_offset)
 
 
 def project(camera, bundle: SplatBundle, *, scaling_modifier: float = 1.0,

@@ -111,7 +111,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from gaussian_garments_tpu_torch.training import s2 as S2
     from gaussian_garments_tpu_torch.utils.general import get_expon_lr_func
     from gaussian_garments_tpu_torch.utils.io import fetch_ply, read_obj, store_ply, write_obj
-    from gaussian_garments_tpu_torch.utils.logging import (MetricLogger, StepTimer, debug_panel,
+    from gaussian_garments_tpu_torch.utils.logging import (MetricLogger, debug_panel,
                                                            shaded_mesh_image)
     from gaussian_garments_tpu_torch.utils.quality import evaluate_cameras
 
@@ -215,7 +215,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         metrics_log = MetricLogger(
             str(stage2_path / "logs" / f"frame_{t:05d}.jsonl") if main_rank else None)
-        timer = StepTimer()
         viewpoint_stack = []
         plateau_on = args.early_stop_rel > 0 and not is_ff
         check_every = 25
@@ -244,9 +243,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 opt.position_lr_init * spatial_lr_scale
 
             t0 = time.perf_counter()
-            with timer.phase("step"):
-                state, loss_dict, metrics = steps[key](state, batch, bg, xyz_lr, vert_lr)
-                _sync(device)
+            state, loss_dict, metrics = steps[key](state, batch, bg, xyz_lr, vert_lr)
+            _sync(device)
             m = stats["modes"].setdefault(mode, {"iterations": 0, "seconds": 0.0})
             m["iterations"] += 1
             m["seconds"] += time.perf_counter() - t0
@@ -274,7 +272,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 n_splats=float(state.aux.alive.sum()),
                                 radii_max=float(metrics["radii_max"]),
                                 n_overflow=float(metrics["n_overflow"]),
-                                step_s=timer.avg.get("step", 0.0))
+                                step_s=m["seconds"] / m["iterations"])
             if it % 500 == 0 or it == iterations:
                 say(f"[frame {t} iter {it}/{iterations}] "
                       + " ".join(f"{k}={float(v):.5f}" for k, v in loss_dict.items()))

@@ -8,7 +8,10 @@ compositor forward and backward) → masked L1 and SSIM → xyz/scale hinges
 (template phase 1) or cloth energies (template phase 2 and sequence mode) →
 ``torch.autograd.grad`` → Adam on the splats or on the vertices, plus the
 densification statistics. Densify, prune and opacity reset stay host edits
-between steps (``models/mesh_gaussian.py``, ``models/gaussian.py``).
+between steps (``models/mesh_gaussian.py``, ``models/gaussian.py``). Spans
+(``utils/logging.span``) mark the step and its layers: ``bundle``, ``loss``,
+``energies``, ``backward``, ``adam`` here, ``project``, ``bin`` and ``sync``
+below.
 
 With a ``group`` (``parallel.Group``, the counterpart of the JAX step's
 ``axis_name``) each rank renders its shard of the camera batch and the step
@@ -33,6 +36,7 @@ from gaussian_garments_tpu_torch.models.adam import TensorAdam, tensor_adam_init
 from gaussian_garments_tpu_torch.parallel import Group, pmax, pmean, psum
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
+from gaussian_garments_tpu_torch.utils import logging as log
 from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
 
 MODES = ("template_p1", "template_p2", "seq")
@@ -97,26 +101,29 @@ def s2_losses(params: G.GaussianParams, mesh_v: torch.Tensor, screen_offset: tor
     """(total, loss_dict, render outputs) of one camera batch
     (``training/s2.py:_s2_losses``)."""
     mesh = state.mesh.replace(v=mesh_v)
-    bundle = splat_bundle(params, state.binding, state.aux.alive, mesh_v, state.mesh.f,
-                          active_sh_degree)
+    with log.span("bundle"):
+        bundle = splat_bundle(params, state.binding, state.aux.alive, mesh_v, state.mesh.f,
+                              active_sh_degree)
     out = render_batch(cams, bundle, bg, screen_offset=screen_offset, config=raster_cfg)
     image = out["render"]
     mask = cams.mask if opt.only_foreground_loss else None
-    loss: Dict[str, torch.Tensor] = {
-        "img": l1_loss(image, cams.image, mask) * (1.0 - opt.lambda_dssim),
-        # the reference's quirk, kept: 1 - ssim·λ, not (1 - ssim)·λ
-        "ssim": 1.0 - ssim(image, cams.image, mask) * opt.lambda_dssim,
-    }
-    if mode == "template_p1":
-        vis = out["visibility_filter"] & state.aux.alive[None, :]
-        xyz_excess = torch.relu(_safe_norm(params.xyz, dim=1) - opt.threshold_xyz)
-        loss["xyz"] = _masked_mean(xyz_excess, vis).mean() * opt.lambda_xyz
-        scale_excess = _safe_norm(torch.relu(torch.exp(params.scaling) - opt.threshold_scale),
-                                  dim=1)
-        loss["scale"] = _masked_mean(scale_excess, vis).mean() * opt.lambda_scale
-    else:
+    with log.span("loss"):
+        loss: Dict[str, torch.Tensor] = {
+            "img": l1_loss(image, cams.image, mask) * (1.0 - opt.lambda_dssim),
+            # the reference's quirk, kept: 1 - ssim·λ, not (1 - ssim)·λ
+            "ssim": 1.0 - ssim(image, cams.image, mask) * opt.lambda_dssim,
+        }
+        if mode == "template_p1":
+            vis = out["visibility_filter"] & state.aux.alive[None, :]
+            xyz_excess = torch.relu(_safe_norm(params.xyz, dim=1) - opt.threshold_xyz)
+            loss["xyz"] = _masked_mean(xyz_excess, vis).mean() * opt.lambda_xyz
+            scale_excess = _safe_norm(torch.relu(torch.exp(params.scaling)
+                                                 - opt.threshold_scale), dim=1)
+            loss["scale"] = _masked_mean(scale_excess, vis).mean() * opt.lambda_scale
+    if mode != "template_p1":
         # the reference adds the cloth energies only while mesh.v is optimized
-        loss.update(MM.get_energy_loss(mesh, opt, use_body and state.mesh.has_body))
+        with log.span("energies"):
+            loss.update(MM.get_energy_loss(mesh, opt, use_body and state.mesh.has_body))
     return sum(loss.values()), loss, out
 
 
@@ -139,6 +146,10 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
     optimize_splats = mode == "template_p1"
 
     def step(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr):
+        with log.span("step"):
+            return _step(state, cams, bg, xyz_lr, vert_lr)
+
+    def _step(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr):
         n_cams = cams.world_view.shape[0]
         params = G.GaussianParams(**{
             k: getattr(state.params, k).detach().requires_grad_(optimize_splats)
@@ -153,7 +164,9 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
             leaves = [getattr(params, k) for k in G.PARAM_NAMES] + [screen]
         else:
             leaves = [mesh_v]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+        with log.span("backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                        materialize_grads=True)
         loss = {k: v.detach() for k, v in loss.items()}
         total = total.detach()
         # the screen gradient stays the rank's own (the JAX step's g_screen)
@@ -164,7 +177,7 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
         new_state = state
         radii_max = out["radii"].max().float()
         n_overflow = out["raster_aux"]["n_overflow"].sum().float()
-        with torch.no_grad():
+        with torch.no_grad(), log.span("adam"):
             if optimize_splats:
                 g_params = G.GaussianParams(**dict(zip(G.PARAM_NAMES, grads[:-1])))
                 lrs = {"xyz": xyz_lr, "features_dc": opt.feature_lr,

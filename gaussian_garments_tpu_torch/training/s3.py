@@ -9,7 +9,9 @@ CUDA compositor forward and backward) on a zero background, masked by the
 per-texel visibility, and the item's background is composited as
 ``img + bg·(1 − α)`` outside the kernel → masked L1 and SSIM plus the xyz,
 scale and opacity hinges → ``torch.autograd.grad`` → Adam over the net and,
-after pre-training, the splats.
+after pre-training, the splats. Spans (``utils/logging.span``) mark the step
+and its layers: ``texels``, ``unet``, ``loss``, ``backward``, ``adam`` here,
+``project``, ``bin`` and ``sync`` below.
 
 The net is called functionally (``torch.func.functional_call``) on the
 state's parameter and buffer dicts, so the state holds the weights and the
@@ -48,6 +50,7 @@ from gaussian_garments_tpu_torch.parallel import Group, pmean
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
 from gaussian_garments_tpu_torch.training.s2 import _safe_norm
+from gaussian_garments_tpu_torch.utils import logging as log
 from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
 
 
@@ -109,9 +112,10 @@ def _s3_project(net, net_vars, splats: G.GaussianParams, bind: AG.AvatarBinding,
     mesh_v = item.mesh_v[b]
     frames = MG.compute_face_frames(mesh_v, mesh_f)
     rows = MG.gather_frame_rows(frames, bind.binding, mesh_v, mesh_f)
-    shadow_tex = functional_call(net, net_vars, (
-        item.ambient[b], item.normal[b], item.world_view[b], item.campos[b], bind, mesh_v,
-        mesh_f, frames), {"rows": rows})
+    with log.span("unet"):
+        shadow_tex = functional_call(net, net_vars, (
+            item.ambient[b], item.normal[b], item.world_view[b], item.campos[b], bind, mesh_v,
+            mesh_f, frames), {"rows": rows})
     local_xyz, shs = apply_shadow(bind, splats, shadow_tex, sh_degree)
     anchor = AG.barycentric_3d(bind, mesh_v, mesh_f, rows=rows)
     bundle = SplatBundle(
@@ -138,8 +142,10 @@ def _s3_forward_batch(net, net_vars, splats, bind, mesh_f, item: S3Item, *, sh_d
     rendered, local = [], []
     zero_bg = torch.zeros(3, device=item.image.device)
     for b in range(item.image.shape[0]):
-        bundle, vis, local_xyz = _s3_project(net, net_vars, splats, bind, mesh_f, item, b,
-                                             sh_degree=sh_degree, vis_raster_hw=vis_raster_hw)
+        with log.span("texels"):
+            bundle, vis, local_xyz = _s3_project(net, net_vars, splats, bind, mesh_f, item, b,
+                                                 sh_degree=sh_degree,
+                                                 vis_raster_hw=vis_raster_hw)
         cams = BatchedCameras(world_view=item.world_view[b:b + 1],
                               full_proj=item.full_proj[b:b + 1], campos=item.campos[b:b + 1],
                               tanfovx=(item.tanfovx[b],), tanfovy=(item.tanfovy[b],),
@@ -174,20 +180,23 @@ def _s3_losses(net, net_params, net_buffers, splats, bind, mesh_f, item: S3Item,
             x.shape[0] if x.ndim == 2 else 1.0)
     else:
         mean = torch.mean
-    loss: Dict[str, torch.Tensor] = {
-        "img": l1_loss(rendered, item.image, mask) * (1.0 - args.lambda_dssim),
-        # the reference's quirk, kept: 1 - ssim·λ, not (1 - ssim)·λ
-        "ssim": 1.0 - ssim(rendered, item.image, mask) * args.lambda_dssim,
-        # hinges (s3_appearance.py:134-137): local xyz per item, scale and
-        # opacity over the splats
-        "xyz": mean(torch.relu(_safe_norm(local_xyz, -1) - args.threshold_xyz))
-        * args.lambda_xyz,
-        "scale": mean(_safe_norm(torch.relu(torch.exp(splats.scaling) - args.threshold_scale),
-                                 1)) * args.lambda_scale,
-        "opacity": mean(torch.relu(args.threshold_opacity - G.get_opacity(splats)).reshape(-1))
-        * args.lambda_opacity,
-    }
-    return sum(loss.values()), loss
+    with log.span("loss"):
+        loss: Dict[str, torch.Tensor] = {
+            "img": l1_loss(rendered, item.image, mask) * (1.0 - args.lambda_dssim),
+            # the reference's quirk, kept: 1 - ssim·λ, not (1 - ssim)·λ
+            "ssim": 1.0 - ssim(rendered, item.image, mask) * args.lambda_dssim,
+            # hinges (s3_appearance.py:134-137): local xyz per item, scale and
+            # opacity over the splats
+            "xyz": mean(torch.relu(_safe_norm(local_xyz, -1) - args.threshold_xyz))
+            * args.lambda_xyz,
+            "scale": mean(_safe_norm(torch.relu(torch.exp(splats.scaling)
+                                                - args.threshold_scale), 1))
+            * args.lambda_scale,
+            "opacity": mean(torch.relu(args.threshold_opacity
+                                       - G.get_opacity(splats)).reshape(-1))
+            * args.lambda_opacity,
+        }
+        return sum(loss.values()), loss
 
 
 def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
@@ -200,6 +209,10 @@ def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
     every rank."""
 
     def step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+        with log.span("step"):
+            return _step(state, bind, mesh_f, item)
+
+    def _step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
         params = {k: v.detach().requires_grad_(True) for k, v in state.net_params.items()}
         splats = G.GaussianParams(**{k: getattr(state.splats, k).detach().requires_grad_(
             train_gaussians) for k in G.PARAM_NAMES})
@@ -209,9 +222,11 @@ def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
         leaves = list(params.values())
         if train_gaussians:
             leaves += [getattr(splats, k) for k in G.PARAM_NAMES]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+        with log.span("backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                        materialize_grads=True)
         grads, loss = pmean((list(grads), {k: v.detach() for k, v in loss.items()}), group)
-        with torch.no_grad():
+        with torch.no_grad(), log.span("adam"):
             g_net = dict(zip(params, grads[:len(params)]))
             new_net, net_adam = tree_adam_step(state.net_params, g_net, state.net_adam,
                                                args.lr_init)

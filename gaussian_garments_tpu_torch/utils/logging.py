@@ -1,27 +1,39 @@
-"""Per-step scalar logging, step timing and the stage-2 debug panel (port of
-``gaussian_garments_tpu/utils/logging.py``; the reference's observability is
-tqdm postfix dicts and debug renders, ``s2_registration.py:65-78,98-122``).
+"""Per-step scalar logging, spans and counters, and the stage-2 debug panel
+(port of ``gaussian_garments_tpu/utils/logging.py``; the reference's
+observability is tqdm postfix dicts and debug renders,
+``s2_registration.py:65-78,98-122``).
 
 - ``MetricLogger``: cumulative averages like the reference's logger, plus an
   append-only JSONL stream;
-- ``StepTimer``: wall-clock per-phase timing with exponential smoothing;
+- ``span`` and ``count``: named host spans at the layer boundaries of the
+  s2 and s3 steps, and process-wide event counters (below);
 - ``PhaseSplit``: host-clock seconds of each run of each phase, with a device
   synchronize around each (the stage-1 split);
 - ``shaded_mesh_image`` and ``debug_panel``: GT | penalized mask | render |
   abs-diff | shaded mesh, the stage-2 saver's panel.
 
-The JAX package's ``trace`` (``jax.profiler``) has no counterpart here:
-``torch.profiler`` is called directly where it is needed.
+Spans record only while a ``torch.profiler`` session runs or after
+``enable()``. Off, ``span`` returns one shared null context after reading
+a flag. On, a span enters ``torch.profiler.record_function`` (when the
+profiler runs), so it shows in the trace under its name, and appends a
+``Record`` stamped with ``time.time_ns()``, the clock of the profiler's
+exported ``ts · 1e3 + baseTimeNanoseconds``. A span opened with no span open
+is a root: the step index of the spans inside it. Spans nest on one thread.
+``count`` adds to a process-wide total always, and, while a root span is
+open, to that step's counts. Records stay in memory until ``reset``.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch.autograd.profiler as _profiler
+from torch.profiler import record_function
 
 
 class MetricLogger:
@@ -55,20 +67,112 @@ class MetricLogger:
             self._f.close()
 
 
-class StepTimer:
-    """Per-phase wall timing with exponential smoothing."""
+class Record(NamedTuple):
+    """One span: ``parent`` is the index in ``records()`` of the span it
+    opened in (-1 for a root), ``step`` the index of its root; ``t1_ns`` is
+    None while it is open."""
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.avg: Dict[str, float] = {}
+    name: str
+    parent: int
+    step: int
+    t0_ns: int
+    t1_ns: Optional[int]
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        self.avg[name] = dt if name not in self.avg else \
-            (1 - self.alpha) * self.avg[name] + self.alpha * dt
+
+_enabled = False
+_records: List[list] = []
+_stack: List[int] = []
+_step_counts: List[Dict[str, int]] = []
+_totals: Dict[str, int] = {}
+_count_lock = threading.Lock()     # the compositor's backward counts on autograd's thread
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "i", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = record_function(self.name) if _profiler._is_profiler_enabled else None
+        if self.rf is not None:
+            self.rf.__enter__()
+        parent = _stack[-1] if _stack else -1
+        if parent < 0:
+            _step_counts.append({})
+        self.i = len(_records)
+        _records.append([self.name, parent, len(_step_counts) - 1, time.time_ns(), None])
+        _stack.append(self.i)
+        return self
+
+    def __exit__(self, *exc):
+        _records[self.i][4] = time.time_ns()
+        _stack.pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context that records the span ``name`` (see the module doc)."""
+    if not (_enabled or _profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the total ``name``, and to the open step's count."""
+    with _count_lock:
+        _totals[name] = _totals.get(name, 0) + n
+        if _stack:
+            c = _step_counts[-1]
+            c[name] = c.get(name, 0) + n
+
+
+def records() -> List[Record]:
+    return [Record(*r) for r in _records]
+
+
+def counters(step: Optional[int] = None) -> Dict[str, int]:
+    """The process-wide totals, or with ``step`` the counts of that root span."""
+    return dict(_totals if step is None else _step_counts[step])
+
+
+def reset():
+    """Forget every record and count. Not inside a span."""
+    _records.clear()
+    _stack.clear()
+    _step_counts.clear()
+    _totals.clear()
+
+
+def enable():
+    """Record spans without a profiler session."""
+    global _enabled
+    _enabled = True
+
+
+def disable():
+    global _enabled
+    _enabled = False
+
+
+def self_times(recs: Optional[List[Record]] = None, steps=None) -> Dict[str, int]:
+    """Nanoseconds per span name of the closed spans of ``recs`` (default
+    ``records()``; parents index into it) whose step is in ``steps`` (default
+    every step): each span's duration less what its children cover."""
+    recs = records() if recs is None else recs
+    out: Dict[str, int] = {}
+    for r in recs:
+        if r.t1_ns is None or (steps is not None and r.step not in steps):
+            continue
+        d = r.t1_ns - r.t0_ns
+        out[r.name] = out.get(r.name, 0) + d
+        if r.parent >= 0:
+            parent = recs[r.parent].name
+            out[parent] = out.get(parent, 0) - d
+    return out
 
 
 class PhaseSplit:

@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gaussian_garments_tpu_torch.utils import logging as log
+
 
 def l1_loss(network_output: torch.Tensor, gt: torch.Tensor, mask=None) -> torch.Tensor:
     if mask is None:
@@ -26,8 +28,10 @@ def l1_loss(network_output: torch.Tensor, gt: torch.Tensor, mask=None) -> torch.
 
 
 def _gaussian_window(window_size: int, sigma: float, device) -> torch.Tensor:
-    gauss = torch.tensor([math.exp(-((x - window_size // 2) ** 2) / float(2 * sigma ** 2))
-                          for x in range(window_size)], dtype=torch.float32, device=device)
+    with log.span("sync"):      # a copy from the host: on a card it waits for the stream
+        log.count("host_syncs")
+        gauss = torch.tensor([math.exp(-((x - window_size // 2) ** 2) / float(2 * sigma ** 2))
+                              for x in range(window_size)], dtype=torch.float32, device=device)
     return gauss / gauss.sum()
 
 

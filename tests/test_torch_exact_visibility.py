@@ -211,7 +211,7 @@ def test_cli_exact_visibility_dense_texels(world, monkeypatch):
                             "--device", "cpu", "--sh_degree", str(DEG), "--texture_size",
                             str(RES), "--width", str(W), "--height", str(H),
                             "--exact_visibility", "--dense_texels"])
-    assert all(set(t) == {"bake_mesh_io_s", "device_s", "raycast_s", "png_s"}
+    assert all(set(t) == {"bake_mesh_io_s", "render_s", "raycast_s", "png_s"}
                for t in stats["frames"])
     assert all(c > 0.1 for c in stats["coverage"])
     want = _jax_rows(traj, root / "jax_sim")

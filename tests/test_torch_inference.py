@@ -95,7 +95,7 @@ def test_slice_matches_jax(output_root):
         assert coverage > 0.1
         diff = np.abs(row.astype(np.int16) - want[idx].astype(np.int16))
         assert diff.max() <= 1, (idx, diff.max(), (diff > 0).mean())
-        assert set(timings) == {"bake_mesh_io_s", "device_s"}
+        assert set(timings) == {"bake_mesh_io_s", "render_s"}
     with torch.no_grad():
         updates, vis = sim.forward(0, cam)
         aux = render(cam, concat_bundle(updates, vis, DEG), bg)["raster_aux"]

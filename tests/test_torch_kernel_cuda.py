@@ -91,14 +91,13 @@ def test_launch_counter_and_no_backward(dev):
     """One forward launch per composite, and the backward goes through the
     backward kernel (it once raised; now it launches exactly once)."""
     proj = _proj(dev, 2000)
-    before = tiles.composite_tiles_cuda.launches
-    before_bwd = tiles.composite_tiles_backward_cuda.launches
+    before = tiles.launches()
     feats = tiles.bin_pairs(proj, image_width=W, image_height=H)
     feats = feats._replace(feats=feats.feats.clone().requires_grad_(True))
     out = tiles.composite_tiles(feats, image_height=H, image_width=W)
-    assert tiles.composite_tiles_cuda.launches == before + 1
+    assert tiles.launches()["composite_fwd"] == before["composite_fwd"] + 1
     out.color.sum().backward()
-    assert tiles.composite_tiles_backward_cuda.launches == before_bwd + 1
+    assert tiles.launches()["composite_bwd"] == before["composite_bwd"] + 1
     assert torch.isfinite(feats.feats.grad).all()
 
 

@@ -126,7 +126,7 @@ def test_drive_end_to_end_over_two_calls(tmp_path):
     # inference
     assert summary["inference_frames"] == 2
     assert len(list((second / "render_out/renders").glob("*.png"))) == 2
-    assert set(summary["inference_split"]) == {"bake_mesh_io_s", "device_s", "png_s"}
+    assert set(summary["inference_split"]) == {"bake_mesh_io_s", "render_s", "png_s"}
 
     # the JAX drive's keys
     jax_summary = json.loads((REPO / "prod_drive_summary.json").read_text())
