@@ -23,7 +23,7 @@ def tensor_adam_init(p: torch.Tensor) -> TensorAdam:
     return TensorAdam(0, torch.zeros_like(p), torch.zeros_like(p))
 
 
-def bias_corrections(step: int, b1: float, b2: float):
+def bias_corrections(step: int, b1: float = 0.9, b2: float = 0.999):
     """(1 − b1^step, 1 − b2^step) in float32, as the JAX step computes them."""
     s = torch.tensor(float(step), dtype=torch.float32)
     return (1.0 - torch.tensor(b1, dtype=torch.float32) ** s,
@@ -48,9 +48,12 @@ def adam_update(p, g, mu, nu, lr, bc1, bc2, b1: float = 0.9, b2: float = 0.999,
 
 
 def tensor_adam_step(p: torch.Tensor, g: torch.Tensor, state: TensorAdam, lr,
-                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15):
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15, bcs=None):
+    """One Adam step of ``p``. ``bcs``: the step's bias corrections already on
+    ``p``'s device (a step under CUDA graph capture reads them from its
+    inputs); by default ``bias_corrections`` of the step, copied there."""
     step = state.step + 1
-    bc1, bc2 = to_device(bias_corrections(step, b1, b2), p.device)
+    bc1, bc2 = to_device(bias_corrections(step, b1, b2), p.device) if bcs is None else bcs
     new_p, mu, nu = adam_update(p, g, state.mu, state.nu, lr, bc1, bc2, b1, b2, eps)
     return new_p, TensorAdam(step, mu, nu)
 

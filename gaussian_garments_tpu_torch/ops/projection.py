@@ -12,7 +12,7 @@ Matrices are stored transposed, as in the reference:
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -115,8 +115,8 @@ def project_gaussians(
     *,
     image_width: int,
     image_height: int,
-    tanfovx: float,
-    tanfovy: float,
+    tanfovx: Union[float, torch.Tensor],
+    tanfovy: Union[float, torch.Tensor],
     scales: Optional[torch.Tensor] = None,
     rotations: Optional[torch.Tensor] = None,
     cov3d_precomp: Optional[torch.Tensor] = None,
@@ -133,7 +133,11 @@ def project_gaussians(
     ``screen_offset`` (N,2), if given, is added to the pixel-space means: a
     differentiable hook whose gradient is ∂L/∂mean2D, the reference's
     ``screenspace_points.retain_grad()`` channel for densification stats. The
-    cull still uses the means without it, as in the JAX package."""
+    cull still uses the means without it, as in the JAX package.
+
+    ``tanfovx`` and ``tanfovy`` are floats or 0-d tensors on the splats'
+    device: a step captured as a CUDA graph takes them as inputs, where a
+    float would be frozen into the graph."""
     n = means3d.shape[0]
     cov3d = build_cov3d(scales, rotations, scaling_modifier) if cov3d_precomp is None \
         else cov3d_precomp

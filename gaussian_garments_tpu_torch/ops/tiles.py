@@ -13,10 +13,13 @@ Port of ``gaussian_garments_tpu/ops/pallas_tiles.py``:
   the pairs, each pair gets the int64 key ``tile·N + depth_rank`` (rank from
   a stable argsort of depth), ``torch.sort`` orders them and a search gives
   per-tile ranges. Pairs are allocated exactly from the counts, so nothing
-  overflows (``n_overflow`` is always 0). The row spans drop only pairs
-  whose α is below 1/255 at every pixel of their tile, so every output and
-  gradient equals that of the plain rect; the JAX package applies them at
-  ``max_tiles_side`` ≤ 8 (its nibble packing), the port at every side;
+  overflows (``n_overflow`` is always 0); under CUDA graph capture, which
+  cannot read the count on the host, they are laid out at the static bound
+  N·side² with the empty slots sorted past the last tile. The row spans
+  drop only pairs whose α is below 1/255 at every pixel of their tile, so
+  every output and gradient equals that of the plain rect; the JAX package
+  applies them at ``max_tiles_side`` ≤ 8 (its nibble packing), the port at
+  every side;
 - ``composite_tiles``: the compositor, one ``torch.autograd.Function``. Its
   forward runs the hand-written kernel ``csrc/composite_fwd.cu`` for CUDA
   tensors and ``composite_tiles_plain``, the same math in plain torch, for
@@ -34,6 +37,7 @@ feature table are zero.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -107,9 +111,7 @@ def _rects(proj: ProjectedGaussians, ell: Ellipse, tiles_x: int, tiles_y: int):
     (N, 2) int64: both axes in each op, with the same float32 roundings
     (the divisions are by powers of two)."""
     means2d, radii = proj.means2d, proj.radii
-    with log.span("sync"):      # a copy from the host: on a card it waits for the stream
-        log.count("host_syncs")
-        size, grid, zero = means2d.new_tensor([[TILE_W, TILE_H], [tiles_x, tiles_y], [0, 0]])
+    size, grid, zero = _rect_constants(means2d.device, means2d.dtype, tiles_x, tiles_y)
     r = radii.to(torch.float32)[:, None]
     e = torch.where(ell.rect_ok[:, None], ell.ext, r)         # ≥ 0, +inf or NaN
     e = torch.minimum(torch.where(e < math.inf, e, r), r)
@@ -118,6 +120,17 @@ def _rects(proj: ProjectedGaussians, ell: Ellipse, tiles_x: int, tiles_y: int):
     hi = edge((means2d + e + size - 1) / size + 1)
     alive = (radii > 0) & (proj.opacity >= ALPHA_EPS)
     return lo, hi, alive
+
+
+@functools.cache
+def _rect_constants(device: torch.device, dtype: torch.dtype, tiles_x: int, tiles_y: int):
+    """``_rects``' (size, grid, zero), (2,) each, made once a (device, dtype,
+    grid): the copy from the host waits for the stream on a card, and a step
+    under CUDA graph capture (``training/s2``) may not copy from the host."""
+    with log.span("sync"):
+        log.count("host_syncs")
+        return torch.tensor([[TILE_W, TILE_H], [tiles_x, tiles_y], [0, 0]], dtype=dtype,
+                            device=device).unbind(0)
 
 
 def row_spans(proj: ProjectedGaussians, ell: Ellipse, lo, hi, alive, *, side: int,
@@ -205,33 +218,51 @@ def bin_pairs(proj: ProjectedGaussians, *, image_width: int, image_height: int,
     """Duplicate-with-keys, sort and per-tile ranges (see module doc). Only
     ``feats`` carries autograd; the integer binning runs without it."""
     tiles_x, tiles_y = tile_grid(image_width, image_height)
+    dev = proj.means2d.device
+    padded = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
     with log.span("bin"):
         with torch.no_grad():
-            binned = _bin(proj, ellipse(proj), tiles_x, tiles_y, max_tiles_side)
+            binned = _bin(proj, ellipse(proj), tiles_x, tiles_y, max_tiles_side, padded)
         return binned._replace(feats=splat_features(proj))
 
 
-def _bin(proj, ell, tiles_x, tiles_y, side) -> TilePairs:
+def _bin(proj, ell, tiles_x, tiles_y, side, padded: bool = False) -> TilePairs:
+    """The pair table. Exact: the pairs are laid out from their count, read
+    on the host. ``padded`` (under CUDA graph capture, which cannot read a
+    count): every entry gets its ``side`` slots, N·side² in all, and a slot
+    past the entry's count the key ``num_tiles·N``, which sorts after every
+    real key, so ``ranges`` and ``pair_splat[:ranges[-1]]`` equal the exact
+    table's (real keys are distinct: a splat emits a tile once)."""
     num_tiles = tiles_x * tiles_y
     n = proj.means2d.shape[0]
     dev = proj.means2d.device
     lo, hi, alive = _rects(proj, ell, tiles_x, tiles_y)
     n_clipped = (alive & ((hi - lo) > side).any(dim=1)).sum().to(torch.int32)
-    # entry e = splat·side + row: its pair count, its first tile, its pairs
+    # entry e = splat·side + row: its pair count (≤ side), its first tile, its pairs
     count, first_tile = (v.reshape(-1) for v in row_spans(proj, ell, lo, hi, alive, side=side,
                                                             tiles_x=tiles_x))
-    with log.span("sync"):
-        log.count("host_syncs")
-        total = int(count.sum())
-    e = torch.repeat_interleave(torch.arange(n * side, device=dev), count, output_size=total)
-    tile = ((first_tile - (torch.cumsum(count, 0) - count))[e]
-            + torch.arange(total, device=dev))
-    sid = torch.div(e, side, rounding_mode="floor")
+    if padded:
+        j = torch.arange(side, device=dev)
+        tile = (first_tile[:, None] + j).reshape(-1)
+        sid = torch.div(torch.arange(n * side * side, device=dev), side * side,
+                        rounding_mode="floor")
+    else:
+        with log.span("sync"):
+            log.count("host_syncs")
+            total = int(count.sum())
+        e = torch.repeat_interleave(torch.arange(n * side, device=dev), count,
+                                    output_size=total)
+        tile = ((first_tile - (torch.cumsum(count, 0) - count))[e]
+                + torch.arange(total, device=dev))
+        sid = torch.div(e, side, rounding_mode="floor")
 
     order = torch.argsort(proj.depth, stable=True)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(n, device=dev)
-    key_sorted, perm = torch.sort(tile * n + rank[sid])
+    key = tile * n + rank[sid]
+    if padded:
+        key = torch.where((j < count[:, None]).reshape(-1), key, num_tiles * n)
+    key_sorted, perm = torch.sort(key)
     bounds = torch.arange(num_tiles + 1, device=dev, dtype=torch.int64) * n
     ranges = torch.searchsorted(key_sorted, bounds)
     return TilePairs(feats=None,

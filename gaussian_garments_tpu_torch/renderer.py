@@ -121,7 +121,7 @@ class BatchedCameras:
     world_view: torch.Tensor              # (B,4,4) transposed world->view
     full_proj: torch.Tensor               # (B,4,4)
     campos: torch.Tensor                  # (B,3)
-    tanfovx: Tuple[float, ...]
+    tanfovx: Tuple[float, ...]            # or (B,) tensors: ``project_gaussians``
     tanfovy: Tuple[float, ...]
     image: Optional[torch.Tensor] = None  # (B,3,H,W)
     mask: Optional[torch.Tensor] = None   # (B,1,H,W)

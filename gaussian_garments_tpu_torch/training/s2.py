@@ -20,6 +20,15 @@ the mean of the splat or vertex gradients and of the losses, the sum of the
 densification increments, the maximum of the radii, and the metrics. The
 densification statistic ``|∂L/∂mean2D| · k`` uses the rank's own screen
 gradient and camera count, before any reduction, as the JAX step does.
+
+On the card, without a ``group``, the vertex modes (``template_p2``,
+``seq``: a fixed splat count and fixed shapes through a frame) run as one
+CUDA graph (``_StepGraph``): captured at the first call of each input
+signature, then replayed, so the host issues one graph launch instead of
+the step's ~5,000 kernel launches. ``template_p1`` (its splat count changes
+at every densify), data parallelism and CPU tensors run eagerly. Counters
+``s2_graph.capture`` and ``s2_graph.replay`` count the two, and a span
+``replay`` marks the inputs' copy and the graph's launch.
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ import torch
 from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
 from gaussian_garments_tpu_torch.models import mesh_model as MM
-from gaussian_garments_tpu_torch.models.adam import TensorAdam, tensor_adam_init, tensor_adam_step
+from gaussian_garments_tpu_torch.models.adam import (TensorAdam, bias_corrections,
+                                                     tensor_adam_init, tensor_adam_step)
 from gaussian_garments_tpu_torch.parallel import Group, pmax, pmean, psum
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
@@ -140,16 +150,32 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
 
     With a ``group``, ``cams`` is this rank's shard and every output is the
     same on every rank.
+
+    The vertex modes on the card without a ``group`` replay a CUDA graph of
+    the step, one for each input signature (``_graph_key``): see the module
+    doc. ``step.eager`` is the same step never captured.
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     optimize_splats = mode == "template_p1"
+    graphs: Dict[tuple, _StepGraph] = {}
 
     def step(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr):
         with log.span("step"):
-            return _step(state, cams, bg, xyz_lr, vert_lr)
+            if optimize_splats or group is not None or not state.mesh.v.is_cuda:
+                return _step(state, cams, bg, xyz_lr, vert_lr)
+            key = _graph_key(state, cams, bg)
+            if key not in graphs:
+                graphs[key] = _StepGraph(_step, state, cams, bg, vert_lr)
+            return graphs[key](state, cams, bg, vert_lr)
 
-    def _step(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr):
+    def eager(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr,
+              bcs=None):
+        with log.span("step"):
+            return _step(state, cams, bg, xyz_lr, vert_lr, bcs)
+
+    def _step(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr,
+              bcs=None):
         n_cams = cams.world_view.shape[0]
         params = G.GaussianParams(**{
             k: getattr(state.params, k).detach().requires_grad_(optimize_splats)
@@ -204,7 +230,7 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
                                               aux=new_aux)
             else:
                 new_v, new_vert_adam = tensor_adam_step(state.mesh.v, grads[0], state.vert_adam,
-                                                        vert_lr)
+                                                        vert_lr, bcs=bcs)
                 new_state = new_state.replace(mesh=state.mesh.replace(v=new_v),
                                               vert_adam=new_vert_adam)
                 n_overflow = psum(n_overflow, group)
@@ -213,7 +239,142 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
         metrics = {"radii_max": radii_max, "n_overflow": n_overflow, "loss": total}
         return new_state, loss, metrics
 
+    step.eager = eager
     return step
+
+
+# ---------------------------------------------------------------------------
+# the vertex step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _graph_inputs(state: S2State, cams: BatchedCameras,
+                  bg: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The tensors a vertex-mode step reads, by name: the splats, their
+    binding and ``alive``, every tensor of the mesh, the vertex moments, the
+    cameras and the background."""
+    out = {f"params.{k}": getattr(state.params, k) for k in G.PARAM_NAMES}
+    out["binding"], out["alive"] = state.binding, state.aux.alive
+    for f in dataclasses.fields(state.mesh):
+        v = getattr(state.mesh, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f"mesh.{f.name}"] = v
+    out["mu"], out["nu"] = state.vert_adam.mu, state.vert_adam.nu
+    for k in ("world_view", "full_proj", "campos", "image", "mask"):
+        if getattr(cams, k) is not None:
+            out[f"cams.{k}"] = getattr(cams, k)
+    out["bg"] = bg
+    return out
+
+
+def _graph_key(state: S2State, cams: BatchedCameras, bg: torch.Tensor) -> tuple:
+    """What a captured step is specialised to: the image size, whether the
+    body is there, and each input's name, device, dtype and shape (camera
+    count, splat, vertex and face counts among them)."""
+    return (cams.width, cams.height, state.mesh.has_body,
+            tuple((k, v.device, v.dtype, tuple(v.shape))
+                  for k, v in _graph_inputs(state, cams, bg).items()))
+
+
+class _StepGraph:
+    """One vertex-mode ``_step`` captured as a CUDA graph on static copies of
+    its inputs.
+
+    Built at the first call of its input signature: it copies the inputs,
+    runs the step once on a side stream on those copies (its lazy set-up:
+    libraries, handles, cached constants; the results are thrown away and
+    the caller's state is never written), then captures it. Each call copies
+    the inputs in, puts the per-step scalars [vert_lr, the two bias
+    corrections, tanfovx…, tanfovy…] on the card with one copy from pinned
+    memory, replays, and returns clones of the new vertices, moments, losses
+    and metrics, so that no later replay overwrites a state the caller holds.
+    The step and iteration counters stay host ints. The counts the step made
+    while it was captured (the compositors' launches) are taken back after
+    the capture and added on each replay."""
+
+    def __init__(self, fn, state: S2State, cams: BatchedCameras, bg: torch.Tensor, vert_lr):
+        dev = state.mesh.v.device
+        n_scalars = 3 + 2 * cams.world_view.shape[0]
+        self.inputs = {k: v.clone() for k, v in _graph_inputs(state, cams, bg).items()}
+        self.scalars = torch.zeros(n_scalars, dtype=torch.float64, device=dev)
+        # two pinned buffers in turn: one is rewritten only after its last copy ran
+        self.host = [torch.zeros(n_scalars, dtype=torch.float64, pin_memory=True)
+                     for _ in range(2)]
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.turn = 0
+        self._load(state, cams, bg, vert_lr)
+        args = _graph_args(state, cams, self.inputs, self.scalars)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = log.counters()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            new_state, loss, metrics = fn(*args)
+            self.v = new_state.mesh.v
+            self.mu, self.nu = new_state.vert_adam.mu, new_state.vert_adam.nu
+            self.names = list(loss)
+            self.values = torch.stack([*loss.values(), metrics["radii_max"],
+                                       metrics["n_overflow"], metrics["loss"]])
+        after = log.counters()
+        self.counts = {k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)}
+        for k, n in self.counts.items():
+            log.count(k, -n)
+        log.count("s2_graph.capture")
+
+    def _load(self, state: S2State, cams: BatchedCameras, bg: torch.Tensor, vert_lr):
+        for k, v in _graph_inputs(state, cams, bg).items():
+            self.inputs[k].copy_(v)
+        self.turn = i = 1 - self.turn
+        self.copied[i].synchronize()
+        self.host[i].numpy()[:] = _graph_scalars(state, cams, vert_lr)
+        self.scalars.copy_(self.host[i], non_blocking=True)
+        self.copied[i].record()
+
+    def __call__(self, state: S2State, cams: BatchedCameras, bg: torch.Tensor, vert_lr):
+        with log.span("replay"):
+            self._load(state, cams, bg, vert_lr)
+            self.graph.replay()
+        for k, n in self.counts.items():
+            log.count(k, n)
+        log.count("s2_graph.replay")
+        values = self.values.clone()
+        loss = dict(zip(self.names, values))
+        metrics = dict(zip(("radii_max", "n_overflow", "loss"), values[len(self.names):]))
+        new_state = state.replace(
+            mesh=state.mesh.replace(v=self.v.clone()),
+            vert_adam=TensorAdam(state.vert_adam.step + 1, self.mu.clone(), self.nu.clone()),
+            iteration=state.iteration + 1)
+        return new_state, loss, metrics
+
+
+def _graph_scalars(state: S2State, cams: BatchedCameras, vert_lr) -> list:
+    """The per-step scalars a captured step reads from its inputs: [vert_lr,
+    the vertex Adam's two bias corrections (``bias_corrections``, float32 on
+    the host), tanfovx…, tanfovy…]."""
+    bc1, bc2 = bias_corrections(state.vert_adam.step + 1)
+    return [float(vert_lr), float(bc1), float(bc2), *map(float, cams.tanfovx),
+            *map(float, cams.tanfovy)]
+
+
+def _graph_args(state: S2State, cams: BatchedCameras, inputs: Dict[str, torch.Tensor],
+                scalars: torch.Tensor) -> tuple:
+    """The arguments of ``_step`` that read only ``inputs`` (named as
+    ``_graph_inputs`` names them) and ``scalars`` (``_graph_scalars`` on the
+    card, float64): (state, cams, bg, xyz_lr, vert_lr, bcs)."""
+    b = cams.world_view.shape[0]
+    field = lambda prefix: {k[len(prefix):]: v for k, v in inputs.items()
+                            if k.startswith(prefix)}
+    state = state.replace(
+        params=G.GaussianParams(**field("params.")), binding=inputs["binding"],
+        aux=state.aux.replace(alive=inputs["alive"]), mesh=state.mesh.replace(**field("mesh.")),
+        vert_adam=state.vert_adam._replace(mu=inputs["mu"], nu=inputs["nu"]))
+    cams = dataclasses.replace(cams, **field("cams."), tanfovx=scalars[3:3 + b],
+                               tanfovy=scalars[3 + b:3 + 2 * b])
+    return state, cams, inputs["bg"], None, scalars[0], (scalars[1], scalars[2])
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,10 @@ profiler runs), so it shows in the trace under its name, and appends a
 exported ``ts · 1e3 + baseTimeNanoseconds``. A span opened with no span open
 is a root: the step index of the spans inside it. Spans nest on one thread.
 ``count`` adds to a process-wide total always, and, while a root span is
-open, to that step's counts. Records stay in memory until ``reset``.
+open, to that step's counts. Records stay in memory until ``reset``. The
+port counts ``host_syncs`` (``sync`` spans), ``composite_fwd.launches`` and
+``composite_bwd.launches`` (``ops/tiles``), and ``s2_graph.capture`` and
+``s2_graph.replay`` (the s2 step's CUDA graph, ``training/s2``).
 """
 from __future__ import annotations
 

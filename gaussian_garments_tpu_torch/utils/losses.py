@@ -13,6 +13,7 @@ not make.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -27,8 +28,12 @@ def l1_loss(network_output: torch.Tensor, gt: torch.Tensor, mask=None) -> torch.
     return torch.abs((network_output - gt) * mask).mean()
 
 
-def _gaussian_window(window_size: int, sigma: float, device) -> torch.Tensor:
-    with log.span("sync"):      # a copy from the host: on a card it waits for the stream
+@functools.cache
+def _gaussian_window(window_size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """The normalised window, made once a (size, sigma, device): the copy from
+    the host waits for the stream on a card, and a step under CUDA graph
+    capture (``training/s2``) may not copy from the host."""
+    with log.span("sync"):
         log.count("host_syncs")
         gauss = torch.tensor([math.exp(-((x - window_size // 2) ** 2) / float(2 * sigma ** 2))
                               for x in range(window_size)], dtype=torch.float32, device=device)

@@ -402,3 +402,101 @@ def test_gather_axis_waits_for_the_kernel_before_it(dev):
         want0 = torch.gather(rtab, 0, ridx.long())
         assert torch.equal(out0, want0)
         assert torch.equal(out1, torch.gather(want0, 1, ridx.long()))
+
+
+# ---------------------------------------------------------------------------
+# the s2 vertex step as one CUDA graph (``training/s2._StepGraph``)
+# ---------------------------------------------------------------------------
+
+def _s2_graph_case(dev, n_ring=8, width=320, height=256):
+    """A 16×16 sheet with its body, its ``seq`` state, and a ring of
+    ``n_ring`` cameras, each of its own focal length, with the sheet's
+    ground truth."""
+    from gaussian_garments_tpu_torch.data import synthetic as syn
+    from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
+    from gaussian_garments_tpu_torch.models import mesh_model as MM
+    from gaussian_garments_tpu_torch.training import s2 as S2
+
+    verts, faces, _ = syn.make_cloth_template(16, 16)
+    colors = syn.face_checker_colors(faces, verts)
+    ring = [syn.make_camera_ring(n_ring, fx=260.0 * (1.0 + 0.06 * i), width=width,
+                                 height_px=height, device=dev)[i] for i in range(n_ring)]
+    cams = syn.render_ground_truth(ring, verts, faces, colors)
+    v0 = verts + np.random.RandomState(0).randn(*verts.shape).astype(np.float32) * 0.01
+    params, aux, binding, _ = MG.create_from_template(v0, faces, colors, max_sh_degree=0,
+                                                      device=dev)
+    body_v = verts - np.array([0, 0, 0.0005], np.float32)
+    mesh = MM.init_body(MM.create(v0, faces, device=dev), body_v, faces,
+                        np.arange(len(verts)) % len(faces))
+    return S2.init_state(params, aux, binding, mesh), cams
+
+
+def _change_gap(new, ref, start):
+    """The harness's ``change_median`` for the one leaf: |‖new − start‖ −
+    ‖ref − start‖| / ‖ref − start‖."""
+    a = float(torch.linalg.norm((new - start).double()))
+    b = float(torch.linalg.norm((ref - start).double()))
+    return abs(a - b) / b
+
+
+def test_s2_graph_replays_the_eager_step(dev):
+    """Eight ``seq`` iterations, alternating without and with the body, 4 of
+    8 cameras of distinct focal lengths each: each graphed call from the
+    eager trajectory's state gives the eager step's losses (1e-6 relative)
+    and vertices (``change_median`` ≤ 6e-5), and the graph's own trajectory
+    ends where the eager one does (≤ 6e-5); one capture per key, one replay
+    per call, the compositors' launches of an eager call on every replay; a
+    state a call returned is not changed by the calls after it."""
+    from argparse import ArgumentParser
+
+    from gaussian_garments_tpu_torch.config import OptimizationParams
+    from gaussian_garments_tpu_torch.renderer import BatchedCameras
+    from gaussian_garments_tpu_torch.training import s2 as S2
+    from gaussian_garments_tpu_torch.utils import logging as log
+
+    parser = ArgumentParser()
+    opt = OptimizationParams(parser).extract(parser.parse_args([]))
+    state0, ring = _s2_graph_case(dev)
+    steps = {b: S2.make_s2_step(opt, mode="seq", use_body=b) for b in (False, True)}
+    bg = torch.zeros(3, device=dev)
+    lr = 1.6e-3
+    n_cams = 4
+    counts = lambda: dict(log.counters())
+    delta = lambda a, b, k: b.get(k, 0) - a.get(k, 0)
+    eager_s, graph_s, held = state0, state0, []
+    for i in range(8):
+        step = steps[i % 2 == 1]
+        batch = BatchedCameras.from_cameras([ring[(3 * i + k) % len(ring)]
+                                             for k in range(n_cams)])
+        c0 = counts()
+        new_e, loss_e, met_e = step.eager(eager_s, batch, bg, lr, lr)
+        torch.cuda.synchronize()
+        c1 = counts()
+        new_g, loss_g, met_g = step(eager_s, batch, bg, lr, lr)
+        torch.cuda.synchronize()
+        c2 = counts()
+        assert delta(c1, c2, "s2_graph.replay") == 1
+        assert delta(c1, c2, "s2_graph.capture") == (1 if i < 2 else 0)
+        for k in ("composite_fwd.launches", "composite_bwd.launches"):
+            assert delta(c0, c1, k) == n_cams
+            # a capture's call also runs its one eager warm-up
+            assert delta(c1, c2, k) == n_cams * (2 if i < 2 else 1)
+        assert list(loss_g) == list(loss_e)
+        total = float(met_e["loss"])
+        assert abs(float(met_g["loss"]) - total) <= 1e-6 * abs(total)
+        for k in loss_e:
+            assert abs(float(loss_g[k]) - float(loss_e[k])) <= 1e-6 * abs(total), k
+        assert _change_gap(new_g.mesh.v, new_e.mesh.v, eager_s.mesh.v) <= 6e-5
+        assert new_g.vert_adam.step == new_e.vert_adam.step == i + 1
+        assert new_g.iteration == new_e.iteration == i + 1
+        eager_s = new_e
+
+        graph_s, loss, met = step(graph_s, batch, bg, lr, lr)
+        held.append((graph_s, loss, met, [graph_s.mesh.v.clone(), graph_s.vert_adam.mu.clone(),
+                                          graph_s.vert_adam.nu.clone(), met["loss"].clone()]))
+    torch.cuda.synchronize()
+    for st, loss, met, kept in held:
+        now = [st.mesh.v, st.vert_adam.mu, st.vert_adam.nu, met["loss"]]
+        assert all(torch.equal(a, b) for a, b in zip(now, kept))
+    assert log.counters()["s2_graph.capture"] >= 2
+    assert _change_gap(graph_s.mesh.v, eager_s.mesh.v, state0.mesh.v) <= 6e-5
