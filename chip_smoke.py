@@ -136,7 +136,9 @@ Imports nothing of JAX. Every number it prints is measured in this run,
 except ``bound_ms``, which it computes from this run's inputs. Launch counts
 are zeroed just before each path is driven and read just after; the
 compositor kernels' ``launches`` in the summary are those of the stage-3 run,
-and every other path must launch them too, the data-parallel ranks included. The time the phases of the bf16,
+counted from its device trace (its steps replay a CUDA graph, whose kernels
+no host code launches; the trace's count must equal the counters'), and
+every other path must launch them too, the data-parallel ranks included. The time the phases of the bf16,
 dense and exact-visibility paths took is printed before the summary.
 """
 import contextlib
@@ -908,6 +910,21 @@ def compositor_launches(since=None) -> dict:
     return now if since is None else {k: v - since[k] for k, v in now.items()}
 
 
+def traced_compositor_launches(torch, run):
+    """``run()`` under the profiler's device trace: (its result, the
+    compositor kernels that the trace shows ran on the card, by name). A
+    replayed CUDA graph's kernels appear in the trace one by one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = run()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return result, {k: sum(f"{k}_kernel" in n for n in names)
+                    for k in ("composite_fwd", "composite_bwd")}
+
+
 def run_inference(torch, inference, argv, what):
     """``inference.main`` with the compositor's launches counted; checks the
     PNG rows and the coverage and prints the per-frame split."""
@@ -1281,31 +1298,39 @@ def copy_stage2(out_root, subject, uv_inset=None):
 
 def phase_s3(torch, dev, out_root, subject="subj", flags=()):
     """``s3_appearance.main`` on the stage-2 output root (see the module doc),
-    or on a copy of it in ``<output>/<subject>`` with ``flags``. Returns
-    (launches, step seconds by kind, peak device memory in bytes)."""
+    or on a copy of it in ``<output>/<subject>`` with ``flags``, under the
+    profiler's device trace. Returns (the compositors' launches counted
+    from that trace, step seconds by kind, peak device memory in bytes);
+    the trace's count must equal the launch counters'."""
     import numpy as np
     from gaussian_garments_tpu_torch import s3_appearance
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
     from gaussian_garments_tpu_torch.training.checkpoints import (
         avatar_net_state_from_jax, load_s3_ckpt, s3_state_from_jax)
+    from gaussian_garments_tpu_torch.utils import logging as log
 
     what = " ".join(["s3", *flags])
     print(f"{what} cuts: {S3_CUTS}")
     before = compositor_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    stats = s3_appearance.main(s3_argv(subject, *flags))
+    stats, launches = traced_compositor_launches(
+        torch, lambda: s3_appearance.main(s3_argv(subject, *flags)))
     wall = time.perf_counter() - t0
-    launches = compositor_launches(before)
+    counted = compositor_launches(before)
     peak = torch.cuda.max_memory_allocated(dev)
     steps = stats["steps"]
     n_steps = steps["pre"]["n"] + steps["full"]["n"]
     print(f"{what} run: {stats['n_items']} training items, {stats['n_texels']} texel splats, "
-          f"{n_steps} steps in {wall:.1f} s wall; launches " + ", ".join(
-              f"{k} {v}" for k, v in launches.items()))
+          f"{n_steps} steps in {wall:.1f} s wall; launches in the device trace " + ", ".join(
+              f"{k} {v}" for k, v in launches.items()) + f"; counters {counted}; graph "
+          f"captures {log.counters().get('s3_graph.capture', 0)}, replays "
+          f"{log.counters().get('s3_graph.replay', 0)} in this process")
     check(n_steps == S3_STEPS and steps["pre"]["n"] == S3_PRE, f"{what} steps {steps}")
     check(launches["composite_bwd"] >= n_steps and launches["composite_fwd"] >= n_steps,
           f"{what}: kernels launched {launches} times for {n_steps} steps")
+    check(launches == counted, f"{what}: the device trace shows {launches} launches, the "
+          f"counters {counted}")
 
     stage3 = os.path.join(out_root, subject, "stage3")
     expect = [os.path.join("ckpt", f) for f in ("net.pkl", "optm.pkl", "info.txt")]
@@ -1343,8 +1368,9 @@ def phase_s3(torch, dev, out_root, subject="subj", flags=()):
         print(f"{what} eval at epoch {q['epoch']}, step {q['step']}: " + " ".join(
             f"{k}={v:.4f}" for k, v in q.items() if k.startswith("eval_")))
     for kind, m in steps.items():
-        print(f"{what} {kind} steps: {m['n']}, {m['seconds'] / m['n']:.4f} s/step (host clock, "
-              f"each step ends in a synchronize; item loading not included)")
+        print(f"{what} {kind} steps: {m['n']}, {m['seconds'] / m['n']:.4f} s/step (host clock "
+              f"under the profiler's device trace, each step ends in a synchronize; item "
+              f"loading not included)")
     print(f"{what} peak device memory: {peak / 2**30:.3f} GiB (max_memory_allocated)")
     return launches, {k: m["seconds"] / m["n"] for k, m in steps.items()}, peak
 

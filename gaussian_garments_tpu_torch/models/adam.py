@@ -73,13 +73,16 @@ def tree_adam_init(params: dict) -> TreeAdam:
 
 
 def tree_adam_step(params: dict, grads: dict, state: TreeAdam, lr, b1: float = 0.9,
-                   b2: float = 0.999, eps: float = 1e-15):
-    """One Adam step of every tensor of ``params`` at learning rate ``lr``."""
+                   b2: float = 0.999, eps: float = 1e-15, bcs=None):
+    """One Adam step of every tensor of ``params``; ``lr`` one learning rate
+    for all, or a dict of one per key. ``bcs`` as ``tensor_adam_step`` takes
+    it; by default copied to the card once, not once per tensor."""
     step = state.step + 1
-    # moved to the card once, not once per tensor
-    bc1, bc2 = to_device(bias_corrections(step, b1, b2), next(iter(params.values())).device)
+    bc1, bc2 = to_device(bias_corrections(step, b1, b2),
+                         next(iter(params.values())).device) if bcs is None else bcs
+    lrs = lr if isinstance(lr, dict) else dict.fromkeys(params, lr)
     new_p, mu, nu = {}, {}, {}
     for k, p in params.items():
-        new_p[k], mu[k], nu[k] = adam_update(p, grads[k], state.mu[k], state.nu[k], lr, bc1, bc2,
-                                             b1, b2, eps)
+        new_p[k], mu[k], nu[k] = adam_update(p, grads[k], state.mu[k], state.nu[k], lrs[k],
+                                             bc1, bc2, b1, b2, eps)
     return new_p, TreeAdam(step, mu, nu)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from gaussian_garments_tpu_torch import resolve_device
-from gaussian_garments_tpu_torch.models.adam import adam_update, bias_corrections, to_device
+from gaussian_garments_tpu_torch.models.adam import TreeAdam, tree_adam_step
 from gaussian_garments_tpu_torch.utils.general import (get_expon_lr_func, inverse_sigmoid,
                                                        knn_numpy)
 from gaussian_garments_tpu_torch.utils.quaternion import normalize as quat_normalize
@@ -167,19 +167,17 @@ def adam_init(params: GaussianParams) -> AdamState:
 
 def adam_step(params: GaussianParams, grads: GaussianParams, state: AdamState,
               lrs: Dict[str, float], b1: float = 0.9, b2: float = 0.999,
-              eps: float = 1e-15) -> Tuple[GaussianParams, AdamState]:
+              eps: float = 1e-15, bcs=None) -> Tuple[GaussianParams, AdamState]:
     """One Adam step with a learning rate per field; ``torch.optim.Adam``
-    (eps=1e-15) semantics with bias correction (reference training_setup)."""
-    step = state.step + 1
-    bc1, bc2 = bias_corrections(step, b1, b2)
-    new_p, new_m, new_v = {}, {}, {}
-    for k in PARAM_NAMES:
-        p = getattr(params, k)
-        new_p[k], new_m[k], new_v[k] = adam_update(
-            p, getattr(grads, k), getattr(state.mu, k), getattr(state.nu, k), lrs[k],
-            *to_device((bc1, bc2), p.device), b1, b2, eps)
-    return GaussianParams(**new_p), AdamState(step, GaussianParams(**new_m),
-                                              GaussianParams(**new_v))
+    (eps=1e-15) semantics with bias correction (reference training_setup).
+    ``models.adam.tree_adam_step`` over the six fields, ``bcs`` as it takes
+    it."""
+    fields = lambda p: {k: getattr(p, k) for k in PARAM_NAMES}
+    new_p, tree = tree_adam_step(fields(params), fields(grads),
+                                 TreeAdam(state.step, fields(state.mu), fields(state.nu)),
+                                 lrs, b1, b2, eps, bcs)
+    return GaussianParams(**new_p), AdamState(tree.step, GaussianParams(**tree.mu),
+                                              GaussianParams(**tree.nu))
 
 
 def make_lr_schedules(opt, spatial_lr_scale: float):

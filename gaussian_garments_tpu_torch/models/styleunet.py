@@ -63,10 +63,8 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
     px0, px1, py0, py1 = pad
     assert min(pad) >= 0, "negative pads unsupported"
     n, c, h, w = x.shape
-    with log.span("sync"):      # a copy from the host: on a card it waits for the stream
-        log.count("host_syncs")
-        kflip = torch.as_tensor(np.ascontiguousarray(kernel[::-1, ::-1]), dtype=x.dtype,
-                                device=x.device)
+    kernel = np.ascontiguousarray(kernel)
+    kflip = _flipped_filter(kernel.tobytes(), kernel.dtype.str, kernel.shape, x.dtype, x.device)
     weight = kflip[None, None].expand(c, 1, *kflip.shape).contiguous()
     if up > 1:
         xu = x.new_zeros((n, c, h * up, w * up))
@@ -74,6 +72,19 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, up: int = 1, down: int = 1,
         x = xu
     x = F.pad(x, (px0, px1, py0, py1))
     return F.conv2d(x, weight, stride=down, groups=c)
+
+
+@functools.cache
+def _flipped_filter(kernel: bytes, np_dtype: str, shape: Tuple[int, int], dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``upfirdn2d``'s FIR filter (``kernel``'s bytes, numpy dtype and shape)
+    flipped, made once a (filter, dtype, device): the copy from the host
+    waits for the stream on a card, and a step under CUDA graph capture
+    (``training/s3``) may not copy from the host."""
+    k = np.frombuffer(kernel, np_dtype).reshape(shape)
+    with log.span("sync"):
+        log.count("host_syncs")
+        return torch.as_tensor(np.ascontiguousarray(k[::-1, ::-1]), dtype=dtype, device=device)
 
 
 def _blur_pads(kernel_len: int, kernel_size: int, factor: int, mode: str) -> Tuple[int, int]:

@@ -10,8 +10,9 @@ Port of ``gaussian_garments_tpu/ops/pallas_tiles.py``:
 - ``bin_pairs``: CUDA-style binning as torch ops. Each alive splat emits the
   tiles of its row spans inside a ``max_tiles_side``² window anchored at the
   rect's top-left; an exclusive scan of the per-(splat, row) widths places
-  the pairs, each pair gets the int64 key ``tile·N + depth_rank`` (rank from
-  a stable argsort of depth), ``torch.sort`` orders them and a search gives
+  the pairs, each pair gets the key ``tile·N + depth_rank`` (rank from
+  a stable argsort of depth; sorted as int32 where ``num_tiles·N`` < 2³¹,
+  else int64), ``torch.sort`` orders them and a search gives
   per-tile ranges. Pairs are allocated exactly from the counts, so nothing
   overflows (``n_overflow`` is always 0); under CUDA graph capture, which
   cannot read the count on the host, they are laid out at the static bound
@@ -262,13 +263,20 @@ def _bin(proj, ell, tiles_x, tiles_y, side, padded: bool = False) -> TilePairs:
     key = tile * n + rank[sid]
     if padded:
         key = torch.where((j < count[:, None]).reshape(-1), key, num_tiles * n)
-    key_sorted, perm = torch.sort(key)
-    bounds = torch.arange(num_tiles + 1, device=dev, dtype=torch.int64) * n
+    key_sorted, perm = torch.sort(key.to(_key_dtype(num_tiles, n)))
+    bounds = torch.arange(num_tiles + 1, device=dev, dtype=key_sorted.dtype) * n
     ranges = torch.searchsorted(key_sorted, bounds)
     return TilePairs(feats=None,
                      pair_splat=sid[perm].to(torch.int32).contiguous(),
                      ranges=ranges.to(torch.int32).contiguous(),
                      n_clipped=n_clipped, tiles_x=tiles_x, tiles_y=tiles_y)
+
+
+def _key_dtype(num_tiles: int, n: int) -> torch.dtype:
+    """The pair keys' sort dtype: int32 where every key, the padded layout's
+    ``num_tiles·N`` included, fits, which sorts in half the radix passes of
+    int64 (the padded layout sorts N·side² keys: 9.4M at 262,144 splats)."""
+    return torch.int32 if num_tiles * n < 2 ** 31 else torch.int64
 
 
 class Composite(NamedTuple):

@@ -23,7 +23,7 @@ gradient and camera count, before any reduction, as the JAX step does.
 
 On the card, without a ``group``, the vertex modes (``template_p2``,
 ``seq``: a fixed splat count and fixed shapes through a frame) run as one
-CUDA graph (``_StepGraph``): captured at the first call of each input
+CUDA graph (``training/graph``): captured at the first call of each input
 signature, then replayed, so the host issues one graph launch instead of
 the step's ~5,000 kernel launches. ``template_p1`` (its splat count changes
 at every densify), data parallelism and CPU tensors run eagerly. Counters
@@ -46,6 +46,7 @@ from gaussian_garments_tpu_torch.models.adam import (TensorAdam, bias_correction
 from gaussian_garments_tpu_torch.parallel import Group, pmax, pmean, psum
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
+from gaussian_garments_tpu_torch.training import graph
 from gaussian_garments_tpu_torch.utils import logging as log
 from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
 
@@ -158,16 +159,17 @@ def make_s2_step(opt, *, mode: str, use_body: bool, active_sh_degree: int = 0,
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     optimize_splats = mode == "template_p1"
-    graphs: Dict[tuple, _StepGraph] = {}
+    graphs = graph.Graphs("s2_graph")
 
     def step(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr):
         with log.span("step"):
             if optimize_splats or group is not None or not state.mesh.v.is_cuda:
                 return _step(state, cams, bg, xyz_lr, vert_lr)
-            key = _graph_key(state, cams, bg)
-            if key not in graphs:
-                graphs[key] = _StepGraph(_step, state, cams, bg, vert_lr)
-            return graphs[key](state, cams, bg, vert_lr)
+            run = lambda inputs, scalars: _graph_outputs(
+                *_step(*_graph_args(state, cams, inputs, scalars)))
+            out = graphs(_graph_key(state, cams, bg), run, _graph_inputs(state, cams, bg),
+                         _graph_scalars(state, cams, vert_lr))
+            return _graph_result(state, out)
 
     def eager(state: S2State, cams: BatchedCameras, bg: torch.Tensor, xyz_lr, vert_lr,
               bcs=None):
@@ -271,84 +273,27 @@ def _graph_key(state: S2State, cams: BatchedCameras, bg: torch.Tensor) -> tuple:
     body is there, and each input's name, device, dtype and shape (camera
     count, splat, vertex and face counts among them)."""
     return (cams.width, cams.height, state.mesh.has_body,
-            tuple((k, v.device, v.dtype, tuple(v.shape))
-                  for k, v in _graph_inputs(state, cams, bg).items()))
+            graph.signature(_graph_inputs(state, cams, bg)))
 
 
-class _StepGraph:
-    """One vertex-mode ``_step`` captured as a CUDA graph on static copies of
-    its inputs.
+def _graph_outputs(new_state: S2State, loss: Dict[str, torch.Tensor],
+                   metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """What a vertex-mode step makes, by name: the vertices, their moments,
+    the losses and the metrics."""
+    return {"v": new_state.mesh.v, "mu": new_state.vert_adam.mu, "nu": new_state.vert_adam.nu,
+            **{f"loss.{k}": v for k, v in loss.items()},
+            **{f"metrics.{k}": v for k, v in metrics.items()}}
 
-    Built at the first call of its input signature: it copies the inputs,
-    runs the step once on a side stream on those copies (its lazy set-up:
-    libraries, handles, cached constants; the results are thrown away and
-    the caller's state is never written), then captures it. Each call copies
-    the inputs in, puts the per-step scalars [vert_lr, the two bias
-    corrections, tanfovx…, tanfovy…] on the card with one copy from pinned
-    memory, replays, and returns clones of the new vertices, moments, losses
-    and metrics, so that no later replay overwrites a state the caller holds.
-    The step and iteration counters stay host ints. The counts the step made
-    while it was captured (the compositors' launches) are taken back after
-    the capture and added on each replay."""
 
-    def __init__(self, fn, state: S2State, cams: BatchedCameras, bg: torch.Tensor, vert_lr):
-        dev = state.mesh.v.device
-        n_scalars = 3 + 2 * cams.world_view.shape[0]
-        self.inputs = {k: v.clone() for k, v in _graph_inputs(state, cams, bg).items()}
-        self.scalars = torch.zeros(n_scalars, dtype=torch.float64, device=dev)
-        # two pinned buffers in turn: one is rewritten only after its last copy ran
-        self.host = [torch.zeros(n_scalars, dtype=torch.float64, pin_memory=True)
-                     for _ in range(2)]
-        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
-        self.turn = 0
-        self._load(state, cams, bg, vert_lr)
-        args = _graph_args(state, cams, self.inputs, self.scalars)
-
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*args)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = log.counters()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            new_state, loss, metrics = fn(*args)
-            self.v = new_state.mesh.v
-            self.mu, self.nu = new_state.vert_adam.mu, new_state.vert_adam.nu
-            self.names = list(loss)
-            self.values = torch.stack([*loss.values(), metrics["radii_max"],
-                                       metrics["n_overflow"], metrics["loss"]])
-        after = log.counters()
-        self.counts = {k: n - before.get(k, 0) for k, n in after.items()
-                       if n != before.get(k, 0)}
-        for k, n in self.counts.items():
-            log.count(k, -n)
-        log.count("s2_graph.capture")
-
-    def _load(self, state: S2State, cams: BatchedCameras, bg: torch.Tensor, vert_lr):
-        for k, v in _graph_inputs(state, cams, bg).items():
-            self.inputs[k].copy_(v)
-        self.turn = i = 1 - self.turn
-        self.copied[i].synchronize()
-        self.host[i].numpy()[:] = _graph_scalars(state, cams, vert_lr)
-        self.scalars.copy_(self.host[i], non_blocking=True)
-        self.copied[i].record()
-
-    def __call__(self, state: S2State, cams: BatchedCameras, bg: torch.Tensor, vert_lr):
-        with log.span("replay"):
-            self._load(state, cams, bg, vert_lr)
-            self.graph.replay()
-        for k, n in self.counts.items():
-            log.count(k, n)
-        log.count("s2_graph.replay")
-        values = self.values.clone()
-        loss = dict(zip(self.names, values))
-        metrics = dict(zip(("radii_max", "n_overflow", "loss"), values[len(self.names):]))
-        new_state = state.replace(
-            mesh=state.mesh.replace(v=self.v.clone()),
-            vert_adam=TensorAdam(state.vert_adam.step + 1, self.mu.clone(), self.nu.clone()),
-            iteration=state.iteration + 1)
-        return new_state, loss, metrics
+def _graph_result(state: S2State, out: Dict[str, torch.Tensor]):
+    """``_step``'s (state, loss_dict, metrics) from a replay's outputs; the
+    step and iteration counters stay host ints."""
+    field = lambda prefix: graph.prefixed(out, prefix)
+    new_state = state.replace(
+        mesh=state.mesh.replace(v=out["v"]),
+        vert_adam=TensorAdam(state.vert_adam.step + 1, out["mu"], out["nu"]),
+        iteration=state.iteration + 1)
+    return new_state, field("loss."), field("metrics.")
 
 
 def _graph_scalars(state: S2State, cams: BatchedCameras, vert_lr) -> list:
@@ -366,8 +311,7 @@ def _graph_args(state: S2State, cams: BatchedCameras, inputs: Dict[str, torch.Te
     ``_graph_inputs`` names them) and ``scalars`` (``_graph_scalars`` on the
     card, float64): (state, cams, bg, xyz_lr, vert_lr, bcs)."""
     b = cams.world_view.shape[0]
-    field = lambda prefix: {k[len(prefix):]: v for k, v in inputs.items()
-                            if k.startswith(prefix)}
+    field = lambda prefix: graph.prefixed(inputs, prefix)
     state = state.replace(
         params=G.GaussianParams(**field("params.")), binding=inputs["binding"],
         aux=state.aux.replace(alive=inputs["alive"]), mesh=state.mesh.replace(**field("mesh.")),

@@ -32,6 +32,18 @@ With a ``group`` (``parallel.Group``, the JAX step's ``axis_name``) each rank
 trains on its shard of the items and the net and splat gradients and the
 losses are averaged over the ranks before Adam (``training/s3.py:336-341``),
 in one all-reduce.
+
+On the card, without a ``group`` and with every item's visibility given
+(``S3Item.vis``, as ``s3_appearance`` caches it), the step runs as one CUDA
+graph (``training/graph``): captured at the first call of each input
+signature, then replayed, so the host issues one graph launch instead of
+the step's ~5,700 kernel launches. The graph reads both Adams' bias
+corrections and the cameras' ``tanfov`` from its scalars; binning lays its
+pairs out at their static bound under capture (``ops/tiles``). Data
+parallelism (its collectives), a step that computes the visibility, and CPU
+tensors run eagerly. Counters ``s3_graph.capture`` and ``s3_graph.replay``
+count the two, and a span ``replay`` marks the inputs' copy and the
+graph's launch.
 """
 from __future__ import annotations
 
@@ -44,11 +56,13 @@ from torch.func import functional_call
 from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
 from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
-from gaussian_garments_tpu_torch.models.adam import TreeAdam, tree_adam_init, tree_adam_step
+from gaussian_garments_tpu_torch.models.adam import (TreeAdam, bias_corrections,
+                                                     tree_adam_init, tree_adam_step)
 from gaussian_garments_tpu_torch.models.avatar_net import apply_shadow
 from gaussian_garments_tpu_torch.parallel import Group, pmean
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
+from gaussian_garments_tpu_torch.training import graph
 from gaussian_garments_tpu_torch.training.s2 import _safe_norm
 from gaussian_garments_tpu_torch.utils import logging as log
 from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
@@ -206,13 +220,32 @@ def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
     ``train_gaussians=False`` (epoch-1 pre-training, s3_appearance.py:110-113)
     only the net is updated and the splats' Adam state does not step. With a
     ``group``, ``item`` is this rank's shard and the new state is the same on
-    every rank."""
+    every rank.
+
+    On the card, without a ``group`` and with the items' visibility given,
+    the step replays a CUDA graph, one for each input signature
+    (``_graph_key``; see the module doc). ``step.eager`` is the same step
+    never captured."""
+    graphs = graph.Graphs("s3_graph")
 
     def step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
         with log.span("step"):
-            return _step(state, bind, mesh_f, item)
+            if not _runs_as_graph(item, group):
+                return _step(state, bind, mesh_f, item)
+            inputs = _graph_inputs(state, bind, mesh_f, item, train_gaussians)
+            run = lambda i, s: _graph_outputs(
+                *_step(*_graph_args(state, bind, item, i, s, train_gaussians)), train_gaussians)
+            out = graphs(_graph_key(net, item, inputs, train_gaussians), run, inputs,
+                         _graph_scalars(state, item))
+            return _graph_result(state, out, train_gaussians)
 
-    def _step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+    def eager(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item,
+              bcs=None):
+        with log.span("step"):
+            return _step(state, bind, mesh_f, item, bcs)
+
+    def _step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item,
+              bcs=None):
         params = {k: v.detach().requires_grad_(True) for k, v in state.net_params.items()}
         splats = G.GaussianParams(**{k: getattr(state.splats, k).detach().requires_grad_(
             train_gaussians) for k in G.PARAM_NAMES})
@@ -226,20 +259,134 @@ def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
             grads = torch.autograd.grad(total, leaves, allow_unused=True,
                                         materialize_grads=True)
         grads, loss = pmean((list(grads), {k: v.detach() for k, v in loss.items()}), group)
+        net_bcs, splat_bcs = (None, None) if bcs is None else bcs
         with torch.no_grad(), log.span("adam"):
             g_net = dict(zip(params, grads[:len(params)]))
             new_net, net_adam = tree_adam_step(state.net_params, g_net, state.net_adam,
-                                               args.lr_init)
+                                               args.lr_init, bcs=net_bcs)
             new_state = state.replace(net_params=new_net, net_adam=net_adam,
                                       iteration=state.iteration + 1)
             if train_gaussians:
                 g_spl = G.GaussianParams(**dict(zip(G.PARAM_NAMES, grads[len(params):])))
                 new_spl, spl_adam = G.adam_step(state.splats, g_spl, state.splat_adam,
-                                                splat_lrs(args))
+                                                splat_lrs(args), bcs=splat_bcs)
                 new_state = new_state.replace(splats=new_spl, splat_adam=spl_adam)
         return new_state, loss
 
+    step.eager = eager
     return step
+
+
+# ---------------------------------------------------------------------------
+# the step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+_ITEM_TENSORS = ("image", "mask", "bg", "mesh_v", "ambient", "normal", "world_view",
+                 "full_proj", "campos", "vis")
+
+
+def _graph_inputs(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor,
+                  item: S3Item, train_gaussians: bool) -> Dict[str, torch.Tensor]:
+    """The tensors a step reads, by name: the net's parameters, buffers and
+    moments, the splats, with ``train_gaussians`` the splats' moments, every
+    tensor of the binding, the faces and every tensor of the item."""
+    out = {}
+    for prefix, d in (("net.", state.net_params), ("buffers.", state.net_buffers),
+                      ("net_mu.", state.net_adam.mu), ("net_nu.", state.net_adam.nu)):
+        out.update((prefix + k, v) for k, v in d.items())
+    splats = [("splats.", state.splats)]
+    if train_gaussians:
+        splats += [("splat_mu.", state.splat_adam.mu), ("splat_nu.", state.splat_adam.nu)]
+    for prefix, p in splats:
+        out.update((prefix + k, getattr(p, k)) for k in G.PARAM_NAMES)
+    for f in dataclasses.fields(bind):
+        v = getattr(bind, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f"bind.{f.name}"] = v
+    out["mesh_f"] = mesh_f
+    out.update((f"item.{k}", getattr(item, k)) for k in _ITEM_TENSORS)
+    return out
+
+
+def _runs_as_graph(item: S3Item, group: Optional[Group]) -> bool:
+    """Whether a step replays a graph: on the card, without a ``group`` (a
+    captured collective is not shown to work) and with the items'
+    visibility given (its depth test is not shown capturable)."""
+    return group is None and item.vis is not None and item.image.is_cuda
+
+
+def _graph_key(net: torch.nn.Module, item: S3Item, inputs: Dict[str, torch.Tensor],
+               train_gaussians: bool) -> tuple:
+    """What a captured step is specialised to: the image size, whether the
+    splats train, the net's activation dtype, and each input's name, device,
+    dtype and shape (items, texels and the layout of the binding among
+    them)."""
+    return (item.width, item.height, train_gaussians, net.act_dtype, graph.signature(inputs))
+
+
+def _graph_scalars(state: S3State, item: S3Item) -> list:
+    """The per-step scalars a captured step reads from its inputs: the net
+    Adam's and the splat Adam's two bias corrections (``bias_corrections``,
+    float32 on the host), tanfovx…, tanfovy…."""
+    bcs = (*bias_corrections(state.net_adam.step + 1),
+           *bias_corrections(state.splat_adam.step + 1))
+    return [*map(float, bcs), *map(float, item.tanfovx), *map(float, item.tanfovy)]
+
+
+def _graph_args(state: S3State, bind: AG.AvatarBinding, item: S3Item,
+                inputs: Dict[str, torch.Tensor], scalars: torch.Tensor,
+                train_gaussians: bool) -> tuple:
+    """The arguments of ``_step`` that read only ``inputs`` (named as
+    ``_graph_inputs`` names them) and ``scalars`` (``_graph_scalars`` on the
+    card, float64): (state, bind, mesh_f, item, bcs). Without
+    ``train_gaussians`` the step reads no splat moment."""
+    b = item.image.shape[0]
+    field = lambda prefix: graph.prefixed(inputs, prefix)
+    state = state.replace(
+        net_params=field("net."), net_buffers=field("buffers."),
+        net_adam=state.net_adam._replace(mu=field("net_mu."), nu=field("net_nu.")),
+        splats=G.GaussianParams(**field("splats.")))
+    if train_gaussians:
+        state = state.replace(splat_adam=state.splat_adam._replace(
+            mu=G.GaussianParams(**field("splat_mu.")), nu=G.GaussianParams(**field("splat_nu."))))
+    bind = dataclasses.replace(bind, **field("bind."))
+    item = dataclasses.replace(item, **field("item."), tanfovx=scalars[4:4 + b],
+                               tanfovy=scalars[4 + b:4 + 2 * b])
+    return state, bind, inputs["mesh_f"], item, ((scalars[0], scalars[1]),
+                                                 (scalars[2], scalars[3]))
+
+
+def _graph_outputs(new_state: S3State, loss: Dict[str, torch.Tensor],
+                   train_gaussians: bool) -> Dict[str, torch.Tensor]:
+    """What a step makes, by name: the net's new parameters and moments,
+    with ``train_gaussians`` the splats' too, and the losses."""
+    out = {}
+    for prefix, d in (("net.", new_state.net_params), ("net_mu.", new_state.net_adam.mu),
+                      ("net_nu.", new_state.net_adam.nu)):
+        out.update((prefix + k, v) for k, v in d.items())
+    if train_gaussians:
+        for prefix, p in (("splats.", new_state.splats), ("splat_mu.", new_state.splat_adam.mu),
+                          ("splat_nu.", new_state.splat_adam.nu)):
+            out.update((prefix + k, getattr(p, k)) for k in G.PARAM_NAMES)
+    out.update((f"loss.{k}", v) for k, v in loss.items())
+    return out
+
+
+def _graph_result(state: S3State, out: Dict[str, torch.Tensor], train_gaussians: bool):
+    """``_step``'s (state, loss_dict) from a replay's outputs; the step
+    counters and ``iteration`` stay host ints."""
+    field = lambda prefix: graph.prefixed(out, prefix)
+    new_state = state.replace(
+        net_params=field("net."),
+        net_adam=TreeAdam(state.net_adam.step + 1, field("net_mu."), field("net_nu.")),
+        iteration=state.iteration + 1)
+    if train_gaussians:
+        params = lambda prefix: G.GaussianParams(**field(prefix))
+        new_state = new_state.replace(
+            splats=params("splats."),
+            splat_adam=G.AdamState(state.splat_adam.step + 1, params("splat_mu."),
+                                   params("splat_nu.")))
+    return new_state, field("loss.")
 
 
 def make_s3_eval(net: torch.nn.Module, *, sh_degree: int,

@@ -22,8 +22,9 @@ is a root: the step index of the spans inside it. Spans nest on one thread.
 ``count`` adds to a process-wide total always, and, while a root span is
 open, to that step's counts. Records stay in memory until ``reset``. The
 port counts ``host_syncs`` (``sync`` spans), ``composite_fwd.launches`` and
-``composite_bwd.launches`` (``ops/tiles``), and ``s2_graph.capture`` and
-``s2_graph.replay`` (the s2 step's CUDA graph, ``training/s2``).
+``composite_bwd.launches`` (``ops/tiles``), and ``s2_graph.capture``,
+``s2_graph.replay``, ``s3_graph.capture`` and ``s3_graph.replay`` (the s2
+and s3 steps' CUDA graphs, ``training/graph``).
 """
 from __future__ import annotations
 

@@ -405,7 +405,7 @@ def test_gather_axis_waits_for_the_kernel_before_it(dev):
 
 
 # ---------------------------------------------------------------------------
-# the s2 vertex step as one CUDA graph (``training/s2._StepGraph``)
+# the s2 vertex step as one CUDA graph (``training/s2``, ``training/graph``)
 # ---------------------------------------------------------------------------
 
 def _s2_graph_case(dev, n_ring=8, width=320, height=256):
@@ -500,3 +500,111 @@ def test_s2_graph_replays_the_eager_step(dev):
         assert all(torch.equal(a, b) for a, b in zip(now, kept))
     assert log.counters()["s2_graph.capture"] >= 2
     assert _change_gap(graph_s.mesh.v, eager_s.mesh.v, state0.mesh.v) <= 6e-5
+
+
+# ---------------------------------------------------------------------------
+# the s3 step as one CUDA graph (``training/s3``, ``training/graph``)
+# ---------------------------------------------------------------------------
+
+def _gaps(new, ref, start, keys):
+    """The harness's gaps of ``keys``: per leaf |‖new − start‖ − ‖ref −
+    start‖| / max(‖ref − start‖, the median leaf's)."""
+    norm = lambda x: float(torch.linalg.norm(x.double()))
+    a = {k: norm(new[k] - start[k]) for k in keys}
+    b = {k: norm(ref[k] - start[k]) for k in keys}
+    med = float(np.median(list(b.values())))
+    return {k: abs(a[k] - b[k]) / max(b[k], med) for k in keys}
+
+
+def test_s3_graph_replays_the_eager_step(dev):
+    """Three ``full`` steps on items of distinct cameras: each graphed call
+    from the eager trajectory's state gives the eager step's losses (1e-6 of
+    their sum), and the first step's splat moments the eager ones' within
+    ``grad_splats`` (0.01); the graph's own trajectory ends where the eager
+    one does within ``change_median`` (0.04) for the net's leaves and for
+    the splats' (the cell's limits, ``perfbench/limits/s3_train.tex512``);
+    one capture, one replay a call, the compositors' launches of an eager
+    call on every replay; a state a call returned is not changed by the
+    calls after it."""
+    from test_torch_s3_graph import _args, _leaves, s3_graph_case
+
+    from gaussian_garments_tpu_torch.training import s3 as S3
+    from gaussian_garments_tpu_torch.utils import logging as log
+
+    net, state0, bind, faces, item = s3_graph_case(dev, n_items=1, width=256, height=192,
+                                                   res=64)
+    step = S3.make_s3_step(net, _args(), sh_degree=1, train_gaussians=True)
+    counts = lambda: dict(log.counters())
+    delta = lambda a, b, k: b.get(k, 0) - a.get(k, 0)
+    start = counts()
+    eager_s, graph_s, held = state0, state0, []
+    for i in range(3):
+        it = item(i)
+        c0 = counts()
+        new_e, loss_e = step.eager(eager_s, bind, faces, it)
+        torch.cuda.synchronize()
+        c1 = counts()
+        new_g, loss_g = step(eager_s, bind, faces, it)
+        torch.cuda.synchronize()
+        c2 = counts()
+        assert delta(c1, c2, "s3_graph.replay") == 1
+        assert delta(c1, c2, "s3_graph.capture") == (1 if i == 0 else 0)
+        for k in ("composite_fwd.launches", "composite_bwd.launches"):
+            assert delta(c0, c1, k) == 1
+            # a capture's call also runs its one eager warm-up
+            assert delta(c1, c2, k) == (2 if i == 0 else 1)
+        assert list(loss_g) == list(loss_e)
+        total = float(sum(loss_e.values()))
+        for k in loss_e:
+            assert abs(float(loss_g[k]) - float(loss_e[k])) <= 1e-6 * abs(total), k
+        assert new_g.net_adam.step == new_e.net_adam.step == i + 1
+        assert new_g.splat_adam.step == new_e.splat_adam.step == i + 1
+        assert new_g.iteration == new_e.iteration == i + 1
+        if i == 0:
+            g, e = _leaves(new_g), _leaves(new_e)
+            zero = {k: torch.zeros_like(v) for k, v in e.items()}
+            mu = [k for k in e if k.startswith("splat_mu.")]
+            assert max(_gaps(g, e, zero, mu).values()) <= 0.01
+        eager_s = new_e
+
+        graph_s, loss = step(graph_s, bind, faces, it)
+        leaves = _leaves(graph_s)
+        held.append((leaves, loss, {k: v.clone() for k, v in leaves.items()},
+                     {k: v.clone() for k, v in loss.items()}))
+    torch.cuda.synchronize()
+    for leaves, loss, kept_leaves, kept_loss in held:
+        assert all(torch.equal(leaves[k], kept_leaves[k]) for k in leaves)
+        assert all(torch.equal(loss[k], kept_loss[k]) for k in loss)
+    assert delta(start, counts(), "s3_graph.capture") == 1
+    assert delta(start, counts(), "s3_graph.replay") == 6
+    g, e, s = _leaves(graph_s), _leaves(eager_s), _leaves(state0)
+    for prefix in ("net.", "splats."):
+        keys = [k for k in e if k.startswith(prefix)]
+        assert float(np.median(list(_gaps(g, e, s, keys).values()))) <= 0.04, prefix
+
+
+def test_s3_graph_launches_are_in_the_device_trace(dev):
+    """A step captured and replayed under the profiler's device trace: the
+    compositor kernels the trace shows on the card are the ones the launch
+    counters report, the eager warm-up's and each replay's alike, so a
+    replay's add-back of its capture's counts is what ran."""
+    from test_torch_s3_graph import _args, s3_graph_case
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gaussian_garments_tpu_torch.training import s3 as S3
+
+    net, state, bind, faces, item = s3_graph_case(dev, n_items=1, width=256, height=192,
+                                                  res=64)
+    step = S3.make_s3_step(net, _args(), sh_degree=1, train_gaussians=True)
+    before = tiles.launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            state, _ = step(state, bind, faces, item(i))
+        torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in tiles.launches().items()}
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    traced = {k: sum(f"{k}_kernel" in n for n in names) for k in counted}
+    # the first call's warm-up runs the step once eagerly; three replays
+    assert counted == traced == {"composite_fwd": 4, "composite_bwd": 4}

@@ -1,4 +1,4 @@
-"""What the s2 vertex step's CUDA graph (``training/s2._StepGraph``) rests on,
+"""What the s2 vertex step's CUDA graph (``training/s2``, ``training/graph``) rests on,
 held on the CPU: binning laid out at its static bound (the layout under
 capture) gives the exact table; the constants that binning and SSIM no
 longer copy each step equal the ones they copied; the step run on the

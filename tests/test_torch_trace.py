@@ -30,12 +30,11 @@ S3_SPANS = {"step", "unet", "texels", "project", "bin", "sync", "loss", "backwar
 N_CAMS = 4
 RES = 32
 # What the card's sync debug mode finds in an eager step after the first:
-# binning's read of its pair count a camera, Adam's two bias corrections a
-# copy (once for the vertices, the net, and each of the six splat fields)
-# and, at texture 32, the eight filter kernels of the appearance net's blurs
-# and wavelet transforms. Binning's constants and SSIM's window are copied
+# binning's read of its pair count a camera and Adam's two bias corrections
+# a copy (once for the vertices, the net and the splats). Binning's
+# constants, SSIM's window and the appearance net's FIR filters are copied
 # once, at the first step.
-EXPECTED_SYNCS = {"s2": N_CAMS + 2, "s3": 1 + 2 + 2 * 6 + 8}
+EXPECTED_SYNCS = {"s2": N_CAMS + 2, "s3": 1 + 2 + 2}
 
 
 @pytest.fixture(autouse=True)
@@ -252,7 +251,7 @@ def _debug_syncs(step, args):
 def test_host_syncs_match_the_cards_sync_debug(stage):
     """Every synchronizing operation that the card reports inside the
     program's eager step is one ``host_syncs`` count in a ``sync`` span; the
-    s2 step's graph replays with none."""
+    s2 and s3 steps' graphs replay with none."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from gaussian_garments_tpu_torch import pin_full_f32
@@ -267,10 +266,9 @@ def test_host_syncs_match_the_cards_sync_debug(stage):
     assert found
     assert collections.Counter(loc for loc, s in found if s != "sync") == {}
     assert counted == len(found) == EXPECTED_SYNCS[stage], collections.Counter(found)
-    if stage == "s2":
-        step(*args)                # captures
-        torch.cuda.synchronize()
-        replays = log.counters().get("s2_graph.replay", 0)
-        found, counted = _debug_syncs(step, args)
-        assert found == [] and counted == 0
-        assert log.counters()["s2_graph.replay"] == replays + 1
+    step(*args)                    # captures
+    torch.cuda.synchronize()
+    replays = log.counters().get(f"{stage}_graph.replay", 0)
+    found, counted = _debug_syncs(step, args)
+    assert found == [] and counted == 0
+    assert log.counters()[f"{stage}_graph.replay"] == replays + 1
