@@ -33,17 +33,18 @@ trains on its shard of the items and the net and splat gradients and the
 losses are averaged over the ranks before Adam (``training/s3.py:336-341``),
 in one all-reduce.
 
-On the card, without a ``group`` and with every item's visibility given
-(``S3Item.vis``, as ``s3_appearance`` caches it), the step runs as one CUDA
-graph (``training/graph``): captured at the first call of each input
-signature, then replayed, so the host issues one graph launch instead of
-the step's ~5,700 kernel launches. The graph reads both Adams' bias
-corrections and the cameras' ``tanfov`` from its scalars; binning lays its
-pairs out at their static bound under capture (``ops/tiles``). Data
-parallelism (its collectives), a step that computes the visibility, and CPU
-tensors run eagerly. Counters ``s3_graph.capture`` and ``s3_graph.replay``
-count the two, and a span ``replay`` marks the inputs' copy and the
-graph's launch.
+A step is a host part and a device part. The host part advances the host
+ints (``iteration``, both Adams' steps), makes the per-step numbers (the bias
+corrections) and builds the new state; the device part takes the pieces of
+the state it reads and returns tensors. On the card, without a ``group`` and
+with every item's visibility given (``S3Item.vis``, as ``s3_appearance``
+caches it), the device part replays as one CUDA graph (``training/graph``),
+captured at the first call of each key of its arguments, so the host issues
+one launch instead of ~5,700; binning lays its pairs out at their static
+bound under capture (``ops/tiles``). ``step.eager`` calls it uncaptured, as
+data parallelism (its collectives), a step that computes the visibility, and
+CPU tensors do. Counters ``s3_graph.capture`` and ``s3_graph.replay`` count
+the two.
 """
 from __future__ import annotations
 
@@ -56,16 +57,15 @@ from torch.func import functional_call
 from gaussian_garments_tpu_torch.models import avatar_gaussian as AG
 from gaussian_garments_tpu_torch.models import gaussian as G
 from gaussian_garments_tpu_torch.models import mesh_gaussian as MG
-from gaussian_garments_tpu_torch.models.adam import (TreeAdam, bias_corrections,
+from gaussian_garments_tpu_torch.models.adam import (TreeAdam, bias_corrections, to_device,
                                                      tree_adam_init, tree_adam_step)
 from gaussian_garments_tpu_torch.models.avatar_net import apply_shadow
 from gaussian_garments_tpu_torch.parallel import Group, pmean
 from gaussian_garments_tpu_torch.renderer import (BatchedCameras, RasterConfig, SplatBundle,
                                                   render_batch)
 from gaussian_garments_tpu_torch.training import graph
-from gaussian_garments_tpu_torch.training.s2 import _safe_norm
 from gaussian_garments_tpu_torch.utils import logging as log
-from gaussian_garments_tpu_torch.utils.losses import l1_loss, ssim
+from gaussian_garments_tpu_torch.utils.losses import l1_loss, safe_norm, ssim
 
 
 @dataclasses.dataclass
@@ -201,111 +201,16 @@ def _s3_losses(net, net_params, net_buffers, splats, bind, mesh_f, item: S3Item,
             "ssim": 1.0 - ssim(rendered, item.image, mask) * args.lambda_dssim,
             # hinges (s3_appearance.py:134-137): local xyz per item, scale and
             # opacity over the splats
-            "xyz": mean(torch.relu(_safe_norm(local_xyz, -1) - args.threshold_xyz))
+            "xyz": mean(torch.relu(safe_norm(local_xyz, -1) - args.threshold_xyz))
             * args.lambda_xyz,
-            "scale": mean(_safe_norm(torch.relu(torch.exp(splats.scaling)
-                                                - args.threshold_scale), 1))
+            "scale": mean(safe_norm(torch.relu(torch.exp(splats.scaling)
+                                               - args.threshold_scale), 1))
             * args.lambda_scale,
             "opacity": mean(torch.relu(args.threshold_opacity
                                        - G.get_opacity(splats)).reshape(-1))
             * args.lambda_opacity,
         }
         return sum(loss.values()), loss
-
-
-def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
-                 raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256),
-                 train_gaussians: bool = True, group: Optional[Group] = None):
-    """``step(state, bind, mesh_f, item) -> (state, loss_dict)``. With
-    ``train_gaussians=False`` (epoch-1 pre-training, s3_appearance.py:110-113)
-    only the net is updated and the splats' Adam state does not step. With a
-    ``group``, ``item`` is this rank's shard and the new state is the same on
-    every rank.
-
-    On the card, without a ``group`` and with the items' visibility given,
-    the step replays a CUDA graph, one for each input signature
-    (``_graph_key``; see the module doc). ``step.eager`` is the same step
-    never captured."""
-    graphs = graph.Graphs("s3_graph")
-
-    def step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
-        with log.span("step"):
-            if not _runs_as_graph(item, group):
-                return _step(state, bind, mesh_f, item)
-            inputs = _graph_inputs(state, bind, mesh_f, item, train_gaussians)
-            run = lambda i, s: _graph_outputs(
-                *_step(*_graph_args(state, bind, item, i, s, train_gaussians)), train_gaussians)
-            out = graphs(_graph_key(net, item, inputs, train_gaussians), run, inputs,
-                         _graph_scalars(state, item))
-            return _graph_result(state, out, train_gaussians)
-
-    def eager(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item,
-              bcs=None):
-        with log.span("step"):
-            return _step(state, bind, mesh_f, item, bcs)
-
-    def _step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item,
-              bcs=None):
-        params = {k: v.detach().requires_grad_(True) for k, v in state.net_params.items()}
-        splats = G.GaussianParams(**{k: getattr(state.splats, k).detach().requires_grad_(
-            train_gaussians) for k in G.PARAM_NAMES})
-        total, loss = _s3_losses(net, params, state.net_buffers, splats, bind, mesh_f, item,
-                                 args, sh_degree=sh_degree, raster_cfg=raster_cfg,
-                                 vis_raster_hw=vis_raster_hw)
-        leaves = list(params.values())
-        if train_gaussians:
-            leaves += [getattr(splats, k) for k in G.PARAM_NAMES]
-        with log.span("backward"):
-            grads = torch.autograd.grad(total, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        grads, loss = pmean((list(grads), {k: v.detach() for k, v in loss.items()}), group)
-        net_bcs, splat_bcs = (None, None) if bcs is None else bcs
-        with torch.no_grad(), log.span("adam"):
-            g_net = dict(zip(params, grads[:len(params)]))
-            new_net, net_adam = tree_adam_step(state.net_params, g_net, state.net_adam,
-                                               args.lr_init, bcs=net_bcs)
-            new_state = state.replace(net_params=new_net, net_adam=net_adam,
-                                      iteration=state.iteration + 1)
-            if train_gaussians:
-                g_spl = G.GaussianParams(**dict(zip(G.PARAM_NAMES, grads[len(params):])))
-                new_spl, spl_adam = G.adam_step(state.splats, g_spl, state.splat_adam,
-                                                splat_lrs(args), bcs=splat_bcs)
-                new_state = new_state.replace(splats=new_spl, splat_adam=spl_adam)
-        return new_state, loss
-
-    step.eager = eager
-    return step
-
-
-# ---------------------------------------------------------------------------
-# the step as one CUDA graph
-# ---------------------------------------------------------------------------
-
-_ITEM_TENSORS = ("image", "mask", "bg", "mesh_v", "ambient", "normal", "world_view",
-                 "full_proj", "campos", "vis")
-
-
-def _graph_inputs(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor,
-                  item: S3Item, train_gaussians: bool) -> Dict[str, torch.Tensor]:
-    """The tensors a step reads, by name: the net's parameters, buffers and
-    moments, the splats, with ``train_gaussians`` the splats' moments, every
-    tensor of the binding, the faces and every tensor of the item."""
-    out = {}
-    for prefix, d in (("net.", state.net_params), ("buffers.", state.net_buffers),
-                      ("net_mu.", state.net_adam.mu), ("net_nu.", state.net_adam.nu)):
-        out.update((prefix + k, v) for k, v in d.items())
-    splats = [("splats.", state.splats)]
-    if train_gaussians:
-        splats += [("splat_mu.", state.splat_adam.mu), ("splat_nu.", state.splat_adam.nu)]
-    for prefix, p in splats:
-        out.update((prefix + k, getattr(p, k)) for k in G.PARAM_NAMES)
-    for f in dataclasses.fields(bind):
-        v = getattr(bind, f.name)
-        if isinstance(v, torch.Tensor):
-            out[f"bind.{f.name}"] = v
-    out["mesh_f"] = mesh_f
-    out.update((f"item.{k}", getattr(item, k)) for k in _ITEM_TENSORS)
-    return out
 
 
 def _runs_as_graph(item: S3Item, group: Optional[Group]) -> bool:
@@ -315,78 +220,91 @@ def _runs_as_graph(item: S3Item, group: Optional[Group]) -> bool:
     return group is None and item.vis is not None and item.image.is_cuda
 
 
-def _graph_key(net: torch.nn.Module, item: S3Item, inputs: Dict[str, torch.Tensor],
-               train_gaussians: bool) -> tuple:
-    """What a captured step is specialised to: the image size, whether the
-    splats train, the net's activation dtype, and each input's name, device,
-    dtype and shape (items, texels and the layout of the binding among
-    them)."""
-    return (item.width, item.height, train_gaussians, net.act_dtype, graph.signature(inputs))
+def make_s3_step(net: torch.nn.Module, args, *, sh_degree: int,
+                 raster_cfg: RasterConfig = RasterConfig(), vis_raster_hw=(256, 256),
+                 train_gaussians: bool = True, group: Optional[Group] = None):
+    """``step(state, bind, mesh_f, item) -> (state, loss_dict)``. With
+    ``train_gaussians=False`` (epoch-1 pre-training, s3_appearance.py:110-113)
+    only the net is updated and the splats' Adam state does not step. With a
+    ``group``, ``item`` is this rank's shard and the new state is the same on
+    every rank. ``step.graph_call`` gives what the step hands the graph,
+    ``step.eager`` the step never captured (see the module doc)."""
+    graphs = graph.Graphs("s3_graph")
 
+    def step(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+        if not _runs_as_graph(item, group):
+            return eager(state, bind, mesh_f, item)
+        with log.span("step"):
+            return _finish(state, graphs(*graph_call(state, bind, mesh_f, item)))
 
-def _graph_scalars(state: S3State, item: S3Item) -> list:
-    """The per-step scalars a captured step reads from its inputs: the net
-    Adam's and the splat Adam's two bias corrections (``bias_corrections``,
-    float32 on the host), tanfovx…, tanfovy…."""
-    bcs = (*bias_corrections(state.net_adam.step + 1),
-           *bias_corrections(state.splat_adam.step + 1))
-    return [*map(float, bcs), *map(float, item.tanfovx), *map(float, item.tanfovy)]
+    def graph_call(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+        """``graphs``' arguments: the device part, its arguments with the
+        per-step numbers as floats, and what it closes over."""
+        bcs = lambda adam: tuple(map(float, bias_corrections(adam.step + 1)))
+        return (_device, _device_args(state, bind, mesh_f, item, bcs),
+                (net.act_dtype, train_gaussians))
 
+    def eager(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item):
+        with log.span("step"):
+            bcs = lambda adam: to_device(bias_corrections(adam.step + 1), state.splats.xyz.device)
+            return _finish(state, _device(*_device_args(state, bind, mesh_f, item, bcs)))
 
-def _graph_args(state: S3State, bind: AG.AvatarBinding, item: S3Item,
-                inputs: Dict[str, torch.Tensor], scalars: torch.Tensor,
-                train_gaussians: bool) -> tuple:
-    """The arguments of ``_step`` that read only ``inputs`` (named as
-    ``_graph_inputs`` names them) and ``scalars`` (``_graph_scalars`` on the
-    card, float64): (state, bind, mesh_f, item, bcs). Without
-    ``train_gaussians`` the step reads no splat moment."""
-    b = item.image.shape[0]
-    field = lambda prefix: graph.prefixed(inputs, prefix)
-    state = state.replace(
-        net_params=field("net."), net_buffers=field("buffers."),
-        net_adam=state.net_adam._replace(mu=field("net_mu."), nu=field("net_nu.")),
-        splats=G.GaussianParams(**field("splats.")))
-    if train_gaussians:
-        state = state.replace(splat_adam=state.splat_adam._replace(
-            mu=G.GaussianParams(**field("splat_mu.")), nu=G.GaussianParams(**field("splat_nu."))))
-    bind = dataclasses.replace(bind, **field("bind."))
-    item = dataclasses.replace(item, **field("item."), tanfovx=scalars[4:4 + b],
-                               tanfovy=scalars[4 + b:4 + 2 * b])
-    return state, bind, inputs["mesh_f"], item, ((scalars[0], scalars[1]),
-                                                 (scalars[2], scalars[3]))
+    def _device_args(state: S3State, bind: AG.AvatarBinding, mesh_f: torch.Tensor,
+                     item: S3Item, bcs) -> tuple:
+        """What the device part reads of the state and the step: ``bcs``
+        gives an Adam's bias corrections of its next step. Without
+        ``train_gaussians`` it reads no splat moment."""
+        splat_moments = splat_bcs = None
+        if train_gaussians:
+            splat_moments = (state.splat_adam.mu, state.splat_adam.nu)
+            splat_bcs = bcs(state.splat_adam)
+        return (state.net_params, state.net_buffers, (state.net_adam.mu, state.net_adam.nu),
+                state.splats, splat_moments, bind, mesh_f, item, bcs(state.net_adam), splat_bcs)
 
+    def _device(net_params: Dict[str, torch.Tensor], net_buffers: Dict[str, torch.Tensor],
+                net_moments: tuple, splats: G.GaussianParams, splat_moments: Optional[tuple],
+                bind: AG.AvatarBinding, mesh_f: torch.Tensor, item: S3Item, net_bcs, splat_bcs):
+        """One Adam step of the net and, with ``train_gaussians``, of the
+        splats, from their moments. Returns (new net parameters, their
+        moments, new splats and their moments or None, loss_dict)."""
+        params = {k: v.detach().requires_grad_(True) for k, v in net_params.items()}
+        leaf_splats = G.GaussianParams(**{k: getattr(splats, k).detach().requires_grad_(
+            train_gaussians) for k in G.PARAM_NAMES})
+        total, loss = _s3_losses(net, params, net_buffers, leaf_splats, bind, mesh_f, item,
+                                 args, sh_degree=sh_degree, raster_cfg=raster_cfg,
+                                 vis_raster_hw=vis_raster_hw)
+        leaves = list(params.values())
+        if train_gaussians:
+            leaves += [getattr(leaf_splats, k) for k in G.PARAM_NAMES]
+        with log.span("backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        grads, loss = pmean((list(grads), {k: v.detach() for k, v in loss.items()}), group)
+        new_splats = new_splat_moments = None
+        with torch.no_grad(), log.span("adam"):
+            # the step counts stay on the host: the bias corrections carry them
+            g_net = dict(zip(params, grads[:len(params)]))
+            new_net, net_adam = tree_adam_step(net_params, g_net, TreeAdam(0, *net_moments),
+                                               args.lr_init, bcs=net_bcs)
+            if train_gaussians:
+                g_spl = G.GaussianParams(**dict(zip(G.PARAM_NAMES, grads[len(params):])))
+                new_splats, spl_adam = G.adam_step(splats, g_spl, G.AdamState(0, *splat_moments),
+                                                   splat_lrs(args), bcs=splat_bcs)
+                new_splat_moments = (spl_adam.mu, spl_adam.nu)
+        return new_net, (net_adam.mu, net_adam.nu), new_splats, new_splat_moments, loss
 
-def _graph_outputs(new_state: S3State, loss: Dict[str, torch.Tensor],
-                   train_gaussians: bool) -> Dict[str, torch.Tensor]:
-    """What a step makes, by name: the net's new parameters and moments,
-    with ``train_gaussians`` the splats' too, and the losses."""
-    out = {}
-    for prefix, d in (("net.", new_state.net_params), ("net_mu.", new_state.net_adam.mu),
-                      ("net_nu.", new_state.net_adam.nu)):
-        out.update((prefix + k, v) for k, v in d.items())
-    if train_gaussians:
-        for prefix, p in (("splats.", new_state.splats), ("splat_mu.", new_state.splat_adam.mu),
-                          ("splat_nu.", new_state.splat_adam.nu)):
-            out.update((prefix + k, getattr(p, k)) for k in G.PARAM_NAMES)
-    out.update((f"loss.{k}", v) for k, v in loss.items())
-    return out
+    def _finish(state: S3State, out) -> tuple:
+        """(state, loss_dict) from the device part's outputs; the step
+        counters and ``iteration`` advance here, as host ints."""
+        net_params, net_moments, splats, splat_moments, loss = out
+        kw = dict(net_params=net_params, net_adam=TreeAdam(state.net_adam.step + 1, *net_moments))
+        if train_gaussians:
+            kw.update(splats=splats,
+                      splat_adam=G.AdamState(state.splat_adam.step + 1, *splat_moments))
+        return state.replace(iteration=state.iteration + 1, **kw), loss
 
-
-def _graph_result(state: S3State, out: Dict[str, torch.Tensor], train_gaussians: bool):
-    """``_step``'s (state, loss_dict) from a replay's outputs; the step
-    counters and ``iteration`` stay host ints."""
-    field = lambda prefix: graph.prefixed(out, prefix)
-    new_state = state.replace(
-        net_params=field("net."),
-        net_adam=TreeAdam(state.net_adam.step + 1, field("net_mu."), field("net_nu.")),
-        iteration=state.iteration + 1)
-    if train_gaussians:
-        params = lambda prefix: G.GaussianParams(**field(prefix))
-        new_state = new_state.replace(
-            splats=params("splats."),
-            splat_adam=G.AdamState(state.splat_adam.step + 1, params("splat_mu."),
-                                   params("splat_nu.")))
-    return new_state, field("loss.")
+    step.eager, step.graph_call = eager, graph_call
+    return step
 
 
 def make_s3_eval(net: torch.nn.Module, *, sh_degree: int,

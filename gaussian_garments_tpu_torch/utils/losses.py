@@ -28,6 +28,13 @@ def l1_loss(network_output: torch.Tensor, gt: torch.Tensor, mask=None) -> torch.
     return torch.abs((network_output - gt) * mask).mean()
 
 
+def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """L2 norm with a zero gradient at 0: the trainers' hinge losses sit
+    exactly at 0 at the start (local xyz = 0)."""
+    sq = (x * x).sum(dim)
+    return torch.sqrt(torch.where(sq == 0.0, torch.ones_like(sq), sq)) * (sq != 0.0)
+
+
 @functools.cache
 def _gaussian_window(window_size: int, sigma: float, device: torch.device) -> torch.Tensor:
     """The normalised window, made once a (size, sigma, device): the copy from

@@ -3,12 +3,14 @@ held on the CPU: binning laid out at its static bound (the layout under
 capture) gives the exact table; the constants that binning and SSIM no
 longer copy each step equal the ones they copied; the step run on the
 graph's inputs (static copies, the per-step scalars as tensors) equals the
-eager step; and the CPU and data-parallel steps stay eager. The graph itself
+eager step; the key follows what the step sees; and the CPU, data-parallel
+and ``template_p1`` steps stay eager. The graph itself
 runs only on the card: ``tests/test_torch_kernel_cuda.py`` holds it against
 the eager step there.
 """
 import math
 from argparse import ArgumentParser
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -135,26 +137,26 @@ def test_cached_rect_constants_and_window_equal_todays():
     assert log.counters().get("host_syncs", 0) == before
 
 
-def test_step_on_the_graphs_inputs_equals_the_eager_step():
-    """``_graph_args`` on copies of the inputs and the scalars as float64
-    tensors, as the graph reads them, against the eager step, for two steps
-    (the second with its Adam state); the caller's state is not written."""
+def test_step_on_the_graphs_inputs_equals_the_eager_step(monkeypatch):
+    """The step on its graph path (``graph_path_on_the_cpu``: the walker's
+    static copies, the learning rate, the bias corrections and the cameras'
+    ``tanfov`` as float64 tensors, the outputs cloned and rebuilt as a
+    replay's are) against the eager step, for two steps (the second with its
+    Adam state) through one key; the caller's state is not written."""
+    from test_torch_s3_graph import graph_path_on_the_cpu
+
+    from gaussian_garments_tpu_torch.training import graph
     from gaussian_garments_tpu_torch.training import s2 as S2
 
     state, cams, bg = _s2_scene()
+    kept = [t.clone() for t in graph.flatten((state, cams, bg))[0]]
+    built = graph_path_on_the_cpu(monkeypatch)
     step = S2.make_s2_step(_opt(), mode="seq", use_body=True)
-    inputs = S2._graph_inputs(state, cams, bg)
-    kept = {k: v.clone() for k, v in inputs.items()}
     lr = 1.6e-3
     eager_state, graph_state = state, state
     for _ in range(2):
         eager_state, e_loss, e_metrics = step.eager(eager_state, cams, bg, lr, lr)
-        copies = {k: v.clone() for k, v in S2._graph_inputs(graph_state, cams, bg).items()}
-        scalars = torch.tensor(S2._graph_scalars(graph_state, cams, lr), dtype=torch.float64)
-        args = S2._graph_args(graph_state, cams, copies, scalars)
-        new, g_loss, g_metrics = step.eager(*args)
-        graph_state = graph_state.replace(mesh=graph_state.mesh.replace(v=new.mesh.v),
-                                          vert_adam=new.vert_adam, iteration=new.iteration)
+        graph_state, g_loss, g_metrics = step(graph_state, cams, bg, lr, lr)
         assert list(g_loss) == list(e_loss)
         for k in e_loss:
             torch.testing.assert_close(g_loss[k], e_loss[k], rtol=1e-6, atol=0)
@@ -164,26 +166,38 @@ def test_step_on_the_graphs_inputs_equals_the_eager_step():
         torch.testing.assert_close(graph_state.vert_adam.mu, eager_state.vert_adam.mu,
                                    rtol=1e-4, atol=1e-9)
     assert graph_state.vert_adam.step == eager_state.vert_adam.step == 2
-    for k, v in S2._graph_inputs(state, cams, bg).items():
-        assert torch.equal(v, kept[k]), k
+    assert graph_state.iteration == eager_state.iteration == 2
+    assert len(built) == 1
+    now = graph.flatten((state, cams, bg))[0]
+    assert len(now) == len(kept) and all(torch.equal(a, b) for a, b in zip(now, kept))
 
 
 def test_graph_key_follows_what_the_step_sees():
+    """The key of a vertex step's graph differs by the camera count, the
+    body and the image size, and stays when only values move: the
+    vertices, the host's step counts and the learning rate."""
     from gaussian_garments_tpu_torch.renderer import BatchedCameras
+    from gaussian_garments_tpu_torch.training import graph
     from gaussian_garments_tpu_torch.training import s2 as S2
 
     state, cams, bg = _s2_scene()
-    key = S2._graph_key(state, cams, bg)
-    moved = state.replace(mesh=state.mesh.replace(v=state.mesh.v + 0.01))
-    assert S2._graph_key(moved, cams, bg) == key
+    step = S2.make_s2_step(_opt(), mode="seq", use_body=True)
+
+    def key(state, cams, lr=1.6e-3):
+        _, args, extra = step.graph_call(state, cams, bg, lr)
+        return extra, graph.flatten(args)[2]
+
+    base = key(state, cams)
+    moved = state.replace(mesh=state.mesh.replace(v=state.mesh.v + 0.01),
+                          vert_adam=state.vert_adam._replace(step=4), iteration=9)
+    assert key(moved, cams, lr=2e-3) == base
     two = BatchedCameras(**{**cams.__dict__, "world_view": cams.world_view[:2],
                             "full_proj": cams.full_proj[:2], "campos": cams.campos[:2],
                             "image": cams.image[:2], "mask": cams.mask[:2],
                             "tanfovx": cams.tanfovx[:2], "tanfovy": cams.tanfovy[:2]})
     no_body, _, _ = _s2_scene(with_body=False)
     small, small_cams, _ = _s2_scene(width=128, height=96)
-    keys = {key, S2._graph_key(state, two, bg), S2._graph_key(no_body, cams, bg),
-            S2._graph_key(small, small_cams, bg)}
+    keys = {base, key(state, two), key(no_body, cams), key(small, small_cams)}
     assert len(keys) == 4
 
 
@@ -211,3 +225,9 @@ def test_cpu_and_group_steps_stay_eager(tmp_path):
     assert "replay" not in {r.name for r in log.records()}
     assert all(log.counters(i)["host_syncs"] >= N_CAMS for i in range(3))
     assert state.iteration == 3
+
+    card = SimpleNamespace(is_cuda=True)
+    assert S2._runs_as_graph("seq", card, None) and S2._runs_as_graph("template_p2", card, None)
+    assert not S2._runs_as_graph("template_p1", card, None)
+    assert not S2._runs_as_graph("seq", card, Group(0, 1, "nccl"))
+    assert not S2._runs_as_graph("seq", torch.zeros(1), None)

@@ -1,19 +1,22 @@
 """What the s3 step's CUDA graph (``training/s3``, ``training/graph``) rests
-on, held on the CPU: the step run on the graph's inputs (static copies, the
-per-step scalars as float64 tensors) equals the eager step; the key follows
-what the step sees; the CPU, data-parallel and visibility-computing steps
-stay eager; the FIR filters that the appearance net no longer copies each
-call equal the ones it copied; both Adams give the same numbers with their
-bias corrections passed in; binning's 32-bit keys give the int64 table, at
-s2's and s3's splat counts; and the grouped clone keeps each tensor. The
+on, held on the CPU: the walker's round trip, scalars and key; the step run
+on the graph's inputs (static copies, the per-step scalars as float64
+tensors) equals the eager step; the key follows what the step sees; the
+CPU, data-parallel and visibility-computing steps stay eager; the FIR
+filters that the appearance net no longer copies each call equal the ones
+it copied; both Adams give the same numbers with their bias corrections
+passed in; binning's 32-bit keys give the int64 table, at s2's and s3's
+splat counts; and the grouped clone keeps each tensor. The
 graph itself runs only on the card: ``tests/test_torch_kernel_cuda.py``
 holds it against the eager step there.
 
 The suite runs six test processes on the CPU at once; this file runs torch on
 two threads, since more threads per process only contend.
 """
+import dataclasses
 from argparse import ArgumentParser, Namespace
 from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import numpy as np
 import pytest
@@ -124,43 +127,74 @@ def _change_gaps(new, ref, start):
     return gaps
 
 
+def graph_path_on_the_cpu(monkeypatch, keep_floats=False) -> list:
+    """Both trainers' steps take their graph path on the CPU, with
+    ``graph.StepGraph`` replaced by a stand-in that runs the step uncaptured
+    at each call, on static copies of its inputs, with its floats as 0-d
+    float64 views of one vector (``keep_floats``: the floats themselves, as
+    the first call gave them), and returns the outputs cloned into one
+    buffer a dtype and rebuilt, as a replay does. Returns the stand-ins
+    built, one a key."""
+    from gaussian_garments_tpu_torch.training import graph
+    from gaussian_garments_tpu_torch.training import s2 as S2
+    from gaussian_garments_tpu_torch.training import s3 as S3
+
+    built = []
+
+    class OnCopies:
+        def __init__(self, name, fn, args, pool=None):
+            tensors, floats, _ = graph.flatten(args)
+            self.inputs = [t.clone() for t in tensors]
+            self.scalars = torch.zeros(len(floats), dtype=torch.float64)
+            self.fn, self.static = fn, graph.rebuild(
+                args, self.inputs, floats if keep_floats else self.scalars.unbind())
+            self.graph = SimpleNamespace(pool=lambda: None)
+            built.append(self)
+
+        def __call__(self, tensors, floats):
+            torch._foreach_copy_(self.inputs, list(tensors))
+            self.scalars.copy_(torch.tensor(floats, dtype=torch.float64))
+            out = self.fn(*self.static)
+            return graph.rebuild(out, graph.clone_into_one_buffer(graph.flatten(out)[0]), ())
+
+    monkeypatch.setattr(graph, "StepGraph", OnCopies)
+    monkeypatch.setattr(S2, "_runs_as_graph", lambda *args: True)
+    monkeypatch.setattr(S3, "_runs_as_graph", lambda *args: True)
+    return built
+
+
 @pytest.mark.parametrize("train_gaussians", [False, True], ids=["pre_train", "full"])
-def test_step_on_the_graphs_inputs_equals_the_eager_step(train_gaussians):
-    """``_graph_args`` on copies of the inputs and the scalars as float64
-    tensors, as the graph reads them, against the eager step, for two
-    steps on batches of two items of distinct focal lengths; the outputs go
-    through ``_graph_outputs`` and ``_graph_result`` as a replay's do. With
-    the item's own ``tanfov`` floats the first step is the eager step bit for
-    bit; with the scalars' (the focal lengths then round once more, by an
-    ulp) the losses agree to 1e-6 of their sum and each leaf's change to 1e-4 (2.4e-6
-    read; Adam's eps of 1e-15 turns a rounding-level gradient into a step).
-    The caller's state is not written."""
+def test_step_on_the_graphs_inputs_equals_the_eager_step(train_gaussians, monkeypatch):
+    """The step on its graph path (``graph_path_on_the_cpu``: the walker's
+    static copies, the per-step floats as float64 tensors, the outputs
+    cloned and rebuilt as a replay's are) against the eager step, for two
+    steps on batches of two items of distinct focal lengths, through one
+    key. With the floats themselves (the cameras' ``tanfov``, the bias
+    corrections) the first step is the eager step bit for bit; with the
+    scalars' (the focal lengths then round once more, by an ulp) the losses
+    agree to 1e-6 of their sum and each leaf's change to 1e-4 (2.4e-6 read;
+    Adam's eps of 1e-15 turns a rounding-level gradient into a step). The
+    graph copies in the splat moments only with ``train_gaussians``. The
+    caller's state is not written."""
+    from gaussian_garments_tpu_torch.training import graph
     from gaussian_garments_tpu_torch.training import s3 as S3
 
     net, state, bind, faces, item = s3_graph_case(torch.device("cpu"))
-    step = S3.make_s3_step(net, _args(), sh_degree=1, train_gaussians=train_gaussians)
-    kept = {k: v.clone() for k, v in S3._graph_inputs(state, bind, faces, item(0), True).items()}
+    make = lambda: S3.make_s3_step(net, _args(), sh_degree=1, train_gaussians=train_gaussians)
+    kept = [t.clone() for t in graph.flatten((state, bind, faces, item(0)))[0]]
+    inputs = graph.flatten(make().graph_call(state, bind, faces, item(0))[1])[0]
+    moments = [t for p in (state.splat_adam.mu, state.splat_adam.nu) for t in vars(p).values()]
+    assert sum(any(t is m for m in moments) for t in inputs) == (12 if train_gaussians else 0)
 
-    def on_graph_inputs(s, it, float_tanfov=False):
-        copies = {k: v.clone() for k, v in
-                  S3._graph_inputs(s, bind, faces, it, train_gaussians).items()}
-        moments = [k for k in copies if k.startswith(("splat_mu.", "splat_nu."))]
-        assert len(moments) == (12 if train_gaussians else 0)
-        scalars = torch.tensor(S3._graph_scalars(s, it), dtype=torch.float64)
-        args = S3._graph_args(s, bind, it, copies, scalars, train_gaussians)
-        if float_tanfov:
-            args[3].tanfovx, args[3].tanfovy = it.tanfovx, it.tanfovy
-        new, loss = step.eager(*args)
-        out = {k: v.clone() for k, v in S3._graph_outputs(new, loss, train_gaussians).items()}
-        return S3._graph_result(s, out, train_gaussians)
-
+    graph_path_on_the_cpu(monkeypatch, keep_floats=True)
+    same_s, same_loss = make()(state, bind, faces, item(0))
+    built = graph_path_on_the_cpu(monkeypatch)
+    step = make()
     eager_s, graph_s = state, state
     for i in range(2):
         it = item(i)
         assert len(set(it.tanfovx)) == 2
-        if i == 0:
-            same_s, same_loss = on_graph_inputs(state, it, float_tanfov=True)
-        graph_s, g_loss = on_graph_inputs(graph_s, it)
+        graph_s, g_loss = step(graph_s, bind, faces, it)
         eager_s, e_loss = step.eager(eager_s, bind, faces, it)
         if i == 0:
             assert list(same_loss) == list(e_loss)
@@ -178,23 +212,35 @@ def test_step_on_the_graphs_inputs_equals_the_eager_step(train_gaussians):
         assert graph_s.iteration == eager_s.iteration == i + 1
         if not train_gaussians:
             assert graph_s.splats is state.splats
+    assert len(built) == 1
     gaps = _change_gaps(_leaves(graph_s), _leaves(eager_s), _leaves(state))
     assert len(gaps) >= 20 and max(gaps.values()) <= 1e-4
-    for k, v in S3._graph_inputs(state, bind, faces, item(0), True).items():
-        assert torch.equal(v, kept[k]), k
+    now = graph.flatten((state, bind, faces, item(0)))[0]
+    assert len(now) == len(kept) and all(torch.equal(a, b) for a, b in zip(now, kept))
 
 
 def test_graph_key_follows_what_the_step_sees():
+    """The key of a step's graph (its arguments' key and what the step adds)
+    differs by train_gaussians, the net's activation dtype, the dense
+    layout, the item count and the image size, and stays when only values
+    move: the weights, the item's cameras and the host's step counts."""
     from gaussian_garments_tpu_torch.models import gaussian as G
     from gaussian_garments_tpu_torch.models.avatar_net import AvatarNet
+    from gaussian_garments_tpu_torch.training import graph
     from gaussian_garments_tpu_torch.training import s3 as S3
 
     cpu = torch.device("cpu")
     net, state, bind, faces, item = s3_graph_case(cpu)
-    key = lambda net, state, bind, it, tg=True: S3._graph_key(
-        net, it, S3._graph_inputs(state, bind, faces, it, tg), tg)
+
+    def key(net, state, bind, it, tg=True):
+        step = S3.make_s3_step(net, _args(), sh_degree=1, train_gaussians=tg)
+        _, args, extra = step.graph_call(state, bind, faces, it)
+        return extra, graph.flatten(args)[2]
+
     base = key(net, state, bind, item(0))
-    moved = state.replace(net_params={k: v + 0.01 for k, v in state.net_params.items()})
+    moved = state.replace(net_params={k: v + 0.01 for k, v in state.net_params.items()},
+                          net_adam=state.net_adam._replace(step=7),
+                          splat_adam=state.splat_adam._replace(step=3), iteration=9)
     assert key(net, moved, bind, item(1)) == base
     bf16 = AvatarNet(RES, 1, act_dtype=torch.bfloat16)
     _, _, dense_bind, _, _ = s3_graph_case(cpu, dense=True)
@@ -353,14 +399,73 @@ def test_padded_binning_with_32_bit_keys_equals_the_int64_table(n, monkeypatch):
 def test_clone_into_one_buffer_keeps_each_tensor():
     from gaussian_garments_tpu_torch.training import graph
 
-    src = {"a": torch.arange(6.0).reshape(2, 3), "i": torch.arange(4), "s": torch.tensor(2.5),
-           "b": torch.ones(3, 1, 2)}
+    src = [torch.arange(6.0).reshape(2, 3), torch.arange(4), torch.tensor(2.5), torch.ones(3, 1, 2)]
     out = graph.clone_into_one_buffer(src)
-    assert list(out) == list(src)
-    for k, v in src.items():
-        assert out[k].dtype == v.dtype and torch.equal(out[k], v)
-        assert out[k].data_ptr() != v.data_ptr()
-    base = out["a"].untyped_storage().data_ptr()
-    assert all(out[k].untyped_storage().data_ptr() == base for k in ("s", "b"))
-    src["a"].add_(1.0)
-    assert torch.equal(out["a"], torch.arange(6.0).reshape(2, 3))
+    assert len(out) == len(src)
+    for o, v in zip(out, src):
+        assert o.dtype == v.dtype and torch.equal(o, v)
+        assert o.data_ptr() != v.data_ptr()
+    base = out[0].untyped_storage().data_ptr()
+    assert all(out[i].untyped_storage().data_ptr() == base for i in (2, 3))
+    src[0].add_(1.0)
+    assert torch.equal(out[0], torch.arange(6.0).reshape(2, 3))
+
+
+class _Pair(NamedTuple):
+    weight: torch.Tensor
+    layers: int
+
+
+@dataclasses.dataclass
+class _Tree:
+    pair: _Pair
+    named: dict
+    gap: Optional[torch.Tensor]
+    count: int
+    flag: bool
+    rates: tuple
+
+
+@dataclasses.dataclass
+class _Grown(_Tree):
+    added: torch.Tensor = None
+
+
+def test_walker_round_trip_scalars_key_and_an_added_field():
+    """``graph.flatten`` and ``graph.rebuild`` on a dataclass holding a
+    NamedTuple, a dict, a None, an int, a bool and a tuple of floats: the
+    round trip is the identity; the floats come out in order and go back as
+    0-d float64 views of one vector; the ints and bools are in the key, and
+    moved values are not; a tensor field added to the dataclass is an input
+    with no other edit."""
+    from gaussian_garments_tpu_torch.training import graph
+
+    w, a, b = torch.ones(2, 3), torch.zeros(4), torch.arange(3)
+    tree = _Tree(pair=_Pair(w, 2), named={"a": a, "b": b}, gap=None, count=5, flag=True,
+                 rates=(0.5, 0.25))
+    tensors, floats, key = graph.flatten(tree)
+    assert [id(t) for t in tensors] == [id(w), id(a), id(b)] and floats == [0.5, 0.25]
+    back = graph.rebuild(tree, tensors, floats)
+    assert back == tree and type(back.pair) is _Pair and list(back.named) == ["a", "b"]
+    assert back.pair.weight is w and back.gap is None
+
+    vector = torch.tensor(floats, dtype=torch.float64)
+    on_scalars = graph.rebuild(tree, tensors, vector.unbind())
+    assert all(r.ndim == 0 and r.dtype == torch.float64 for r in on_scalars.rates)
+    assert [float(r) for r in on_scalars.rates] == floats
+    vector[1] = 2.0
+    assert float(on_scalars.rates[1]) == 2.0
+
+    moved = dataclasses.replace(tree, pair=_Pair(w + 1, 2), named={"a": a - 1, "b": b + 1},
+                                rates=(0.75, 0.125))
+    assert graph.flatten(moved)[2] == key
+    for changed in (dataclasses.replace(tree, count=6), dataclasses.replace(tree, flag=False),
+                    dataclasses.replace(tree, pair=_Pair(w, 3)),
+                    dataclasses.replace(tree, gap=torch.zeros(1)),
+                    dataclasses.replace(tree, named={"a": a, "b": b[:2]})):
+        assert graph.flatten(changed)[2] != key
+
+    c = torch.full((2,), 3.0)
+    grown = _Grown(**vars(tree), added=c)
+    assert graph.flatten(grown)[0][-1] is c
+    assert graph.rebuild(grown, *graph.flatten(grown)[:2]).added is c
